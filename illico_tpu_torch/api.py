@@ -1,0 +1,159 @@
+"""Public API: asymptotic Wilcoxon rank-sum tests on a torch device.
+
+Same signature and output contract as ``illico_tpu.api``: a DataFrame
+indexed by ``(pert, feature)`` with columns ``p_value``, ``statistic`` (U of
+the reference sample, exact) and ``fold_change``.  Computation runs on
+``torch.device("cuda")`` unless ``device`` says otherwise (the tests pass
+``device="cpu"``, where every kernel runs as its plain torch version).
+
+The DataFrame's ``attrs["stage_seconds"]`` holds the run's per-stage
+seconds (see :class:`illico_tpu_torch.models.wilcoxon.RunResult`).
+"""
+
+from __future__ import annotations
+
+import time as _time
+from typing import Literal
+
+import numpy as np
+import pandas as pd
+import torch
+
+from illico_tpu_torch.models.wilcoxon import WilcoxonRunner
+from illico_tpu_torch.utils.groups import encode_and_count_groups
+from illico_tpu_torch.utils.log import logger
+from illico_tpu_torch.utils.registry import data_handler_registry
+
+__all__ = ["asymptotic_wilcoxon", "asymptotic_wilcoxon_arrays", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; None means CUDA, which must exist."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "illico_tpu_torch runs on a CUDA device by default and none "
+                "is available; pass device='cpu' to run the plain torch "
+                "versions of the kernels on the CPU."
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def asymptotic_wilcoxon(
+    adata,
+    is_log1p: bool,
+    group_keys: str,
+    reference: str | None = None,
+    n_threads: int = 1,
+    batch_size: int | Literal["auto"] = "auto",
+    alternative: str = "two-sided",
+    use_continuity: bool = True,
+    tie_correct: bool = True,
+    layer: str | None = None,
+    precompile: bool = True,
+    device=None,
+    devices: int | tuple[int, int] | None = None,
+    progress: bool = True,
+    engine: str = "auto",
+    profile_dir: str | None = None,
+) -> pd.DataFrame:
+    """Asymptotic Mann-Whitney (Wilcoxon rank-sum) differential expression.
+
+    One-versus-rest (OVR) tests when ``reference`` is None, else
+    one-versus-one (OVO) tests of every group against ``reference``, per
+    gene, over an in-RAM dense, CSR or CSC matrix.  ``device`` is a torch
+    device or string (default CUDA).  ``engine`` is ``"auto"`` (histogram
+    engine for count data, sort engine otherwise), ``"hist"`` or ``"sort"``.
+    ``precompile`` is accepted for signature parity; the kernels build at
+    first use.  ``devices`` (multi-device), ``profile_dir`` and
+    ``engine="csort"`` are not ported yet and raise ``NotImplementedError``.
+    """
+    if alternative not in ("two-sided", "greater", "less"):
+        raise ValueError(f"Unsupported alternative hypothesis: {alternative}")
+    if devices is not None:
+        raise NotImplementedError("devices= (multi-device runs) is not ported yet.")
+    if profile_dir is not None:
+        raise NotImplementedError("profile_dir= is not ported yet.")
+    del precompile
+    dev = resolve_device(device)
+    if layer is not None:
+        logger.info(f"Using layer '{layer}' for differential expression.")
+        X = adata.layers[layer]
+    else:
+        X = adata.X
+
+    handler = data_handler_registry.get(X)
+    handler.validate()
+
+    t0 = _time.perf_counter()
+    raw_groups = np.asarray(adata.obs[group_keys])
+    unique_groups, info = encode_and_count_groups(raw_groups, reference)
+    logger.trace("Group encoding: %.2fs.", _time.perf_counter() - t0)
+    logger.info(
+        "Found %d unique groups (min size: %d cells; max size: %d cells), "
+        "with reference group: %s",
+        info.n_groups, int(info.counts.min()), int(info.counts.max()), reference,
+    )
+
+    t0 = _time.perf_counter()
+    runner = WilcoxonRunner(
+        handler,
+        info,
+        is_log1p=is_log1p,
+        device=dev,
+        batch_size=batch_size,
+        n_threads=n_threads,
+        use_continuity=use_continuity,
+        tie_correct=tie_correct,
+        alternative=alternative,
+        engine=engine,
+    )
+    setup = _time.perf_counter() - t0
+    res = runner.run(progress=progress)
+
+    df = build_result_frame(unique_groups, adata.var_names, res.stacked.reshape(-1, 3))
+    df.attrs["stage_seconds"] = {"setup": setup, **res.stage_seconds}
+    df.attrs["engine"] = runner.engine
+    df.attrs["n_fallback_cols"] = res.n_fallback_cols
+    return df
+
+
+def build_result_frame(unique_groups, var_names, stacked) -> pd.DataFrame:
+    """Assemble the output DataFrame from a (n_groups*n_genes, 3) [p, U, fc]
+    block: MultiIndex ``(pert, feature)`` and three named columns."""
+    rows = pd.Series(unique_groups, name="pert", dtype=str)
+    cols = pd.Series(np.asarray(var_names), name="feature", dtype=str)
+    return pd.DataFrame(
+        data=stacked,
+        index=pd.MultiIndex.from_product([rows, cols], names=["pert", "feature"]),
+        columns=["p_value", "statistic", "fold_change"],
+        copy=False,
+    )
+
+
+def asymptotic_wilcoxon_arrays(
+    X,
+    groups,
+    *,
+    is_log1p: bool = False,
+    reference: str | None = None,
+    var_names=None,
+    **kwargs,
+) -> pd.DataFrame:
+    """Array-first variant: ``X`` (n_cells, n_genes) + per-cell group labels."""
+    from illico_tpu_torch.io.h5ad import AnnDataLite
+
+    groups = np.asarray(groups)
+    obs = pd.DataFrame({"group": groups})
+    var = pd.DataFrame(
+        index=(
+            pd.Index(var_names)
+            if var_names is not None
+            else pd.Index([f"gene_{i}" for i in range(X.shape[1])])
+        )
+    )
+    adata = AnnDataLite(X, obs, var)
+    return asymptotic_wilcoxon(
+        adata, is_log1p=is_log1p, group_keys="group", reference=reference, **kwargs
+    )

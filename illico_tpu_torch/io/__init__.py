@@ -1,0 +1,1 @@
+"""Io modules of illico_tpu_torch (mirrors illico_tpu/io)."""

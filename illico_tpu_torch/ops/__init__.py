@@ -1,0 +1,1 @@
+"""Ops modules of illico_tpu_torch (mirrors illico_tpu/ops)."""

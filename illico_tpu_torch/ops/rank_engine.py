@@ -1,0 +1,252 @@
+"""Sort engine: one global sort per column serves every group.
+
+Port of ``illico_tpu.ops.rank_engine`` (which is XLA code, not a Pallas
+kernel) to plain torch ops.  It serves float64 inputs, non-count data and
+the histogram engine's overflow columns.
+
+- **OVR**: global tie-averaged ranks from the sorted column, then exact
+  per-group rank sums over the group-contiguous padded layout.
+- **OVO**: for the pair (ref, g), ``U_tgt = #{(r,e): r in ref, e in g, r < e}
+  + 0.5 * #{r == e}``; both counts are per-element prefix quantities of the
+  same global sort, so every group's U against the reference comes from one
+  sort.  Tie sums decompose per value block as
+  ``(a+t)^3-(a+t) = (a^3-a) + (t^3-t) + 3at(a+t)``.
+
+Layout contract: rows are permuted so groups are contiguous, and each group
+segment is padded to a multiple of ``BLOCK`` rows with +inf sentinel rows
+that sort last in every column and carry zero payloads.  Per-group sums are
+int32 within-block sums (exact) plus a float64 cross-block cumsum (exact
+below 2^53).
+
+Ordering: the reference sorts by (value, group) with ``lax.sort(num_keys=2)``.
+Here one *stable* ``torch.sort`` on value does the same, because the padded
+layout's ``grp`` never decreases along the row axis: equal values keep row
+order, hence group order.  Only tie-block boundaries matter downstream, so
+the two agree exactly.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "BLOCK",
+    "PaddedLayout",
+    "build_padded_layout",
+    "rank_stats_tile",
+    "make_tile_fn",
+]
+
+# Rows per segment-sum block. Group segments are padded to a multiple of this,
+# so within-block partial sums never cross a group boundary.
+BLOCK = 32
+
+_I32_MAX = 2**31 - 1
+
+# Largest padded row count for which the int32 block-partial segment sums
+# are provably exact: per-element integer payloads are bounded by
+# 3*n_pad + 2, and a BLOCK-row partial sum of them must stay below 2^31.
+# Beyond this (~22M rows) the segment sums switch to float64.
+_I32_SAFE_N_PAD = (2**31 // BLOCK - 3) // 3
+
+
+class PaddedLayout(NamedTuple):
+    """Static (host-side) description of the group-contiguous padded layout."""
+
+    perm: np.ndarray          # (n_pad,) int32: source row per padded slot; -1 = pad
+    grp: np.ndarray           # (n_pad,) int32: group code per padded slot
+    pad_mask: np.ndarray      # (n_pad,) bool: True on pad slots
+    block_starts: np.ndarray  # (n_groups,) int32: first block index of each group
+    block_ends: np.ndarray    # (n_groups,) int32: one-past-last block index
+    n_cells: int
+    n_groups: int
+
+    @property
+    def n_pad(self) -> int:
+        return int(self.perm.size)
+
+
+def build_padded_layout(perm: np.ndarray, indptr: np.ndarray, block: int = BLOCK) -> PaddedLayout:
+    """Pad each group's contiguous segment to a multiple of ``block`` rows."""
+    n_groups = indptr.size - 1
+    counts = np.diff(indptr)
+    padded_counts = ((counts + block - 1) // block) * block
+    # Groups with zero rows keep zero blocks.
+    out_indptr = np.zeros(n_groups + 1, dtype=np.int64)
+    np.cumsum(padded_counts, out=out_indptr[1:])
+    n_pad = int(out_indptr[-1])
+
+    perm_pad = np.full(n_pad, -1, dtype=np.int32)
+    grp_pad = np.full(n_pad, n_groups, dtype=np.int32)
+    for g in range(n_groups):
+        s, e = int(indptr[g]), int(indptr[g + 1])
+        os = int(out_indptr[g])
+        perm_pad[os : os + (e - s)] = perm[s:e]
+        grp_pad[os : int(out_indptr[g + 1])] = g
+
+    return PaddedLayout(
+        perm=perm_pad,
+        grp=grp_pad,
+        pad_mask=perm_pad < 0,
+        block_starts=(out_indptr[:-1] // block).astype(np.int32),
+        block_ends=(out_indptr[1:] // block).astype(np.int32),
+        n_cells=int(indptr[-1]),
+        n_groups=int(n_groups),
+    )
+
+
+def _segment_sum(q, block_starts, block_ends, within_dtype):
+    """Per-group sums over block-aligned segments: within-block sums in
+    ``within_dtype`` (int32: exact for bounded payloads), then a float64
+    cross-block cumsum and constant-index differences."""
+    n_pad, t = q.shape
+    within = q.reshape(n_pad // BLOCK, BLOCK, t).sum(dim=1, dtype=within_dtype)
+    cross = torch.cumsum(within.to(torch.float64), dim=0)
+    css = torch.cat([cross.new_zeros((1, t)), cross], dim=0)
+    return css[block_ends.long()] - css[block_starts.long()]
+
+
+def _reverse_cummin(x):
+    return torch.flip(torch.cummin(torch.flip(x, (0,)), dim=0).values, (0,))
+
+
+def _boundaries(sv):
+    """(neq_prev, neq_next): True where an element starts / ends its tie block."""
+    brk = sv[1:] != sv[:-1]
+    edge = torch.ones_like(sv[:1], dtype=torch.bool)
+    return torch.cat([edge, brk], 0), torch.cat([brk, edge], 0)
+
+
+def _block_bounds(neq_prev, neq_next):
+    """First/last row index of each element's block along axis 0."""
+    n = neq_prev.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=neq_prev.device)[:, None]
+    idx = idx.expand(neq_prev.shape)
+    first = torch.cummax(torch.where(neq_prev, idx, 0), dim=0).values
+    last = _reverse_cummin(torch.where(neq_next, idx, n))
+    return first, last
+
+
+def _to_layout_order(spos, *payloads):
+    """Scatter sorted-order payloads back to layout order (spos is a
+    permutation of the rows in every column)."""
+    return [torch.empty_like(p).scatter_(0, spos, p) for p in payloads]
+
+
+def rank_stats_tile(
+    x_raw,
+    perm,
+    grp,
+    pad_mask,
+    block_starts,
+    block_ends,
+    *,
+    ref_code: int,
+    is_log1p: bool,
+):
+    """Per-tile rank statistics; same contract as the reference function
+    (with ``compute_fc=True``, the only setting the runner uses).
+
+    Parameters
+    ----------
+    x_raw : (n_cells, T) tile of expression values (original row order).
+    perm : (n_pad,) int32 — padded permutation (pads clipped to 0, masked).
+    grp : (n_pad,) int32 — group code per padded slot.
+    pad_mask : (n_pad,) bool.
+    block_starts / block_ends : (G,) int32 — segment bounds in blocks.
+    ref_code : -1 selects OVR, otherwise OVO against that group.
+    is_log1p : expm1 data before summing expression for fold change.
+
+    Returns a dict of small float64 tensors:
+      OVR: R2 (2x rank sums, exact) (G, T), tie_col (T,)
+      OVO: U2 (2x U_tgt, exact) (G, T), tie_seg (G, T), tie_ref_col (T,)
+      both: fc_sums (G, T).
+    """
+    # Narrow wire dtypes are cast on the device: exact for integers below
+    # 2**24 and for every float16 value.
+    if x_raw.dtype not in (torch.float32, torch.float64):
+        x_raw = x_raw.to(torch.float32)
+    n_pad = perm.shape[0]
+    int_within = torch.int32 if n_pad <= _I32_SAFE_N_PAD else torch.float64
+
+    gathered = x_raw.index_select(0, perm.clamp(0, x_raw.shape[0] - 1).long())
+    pad2d = pad_mask[:, None]
+    xp = torch.where(pad2d, torch.inf, gathered)
+
+    expr = torch.expm1(gathered) if is_log1p else gathered
+    expr = torch.where(pad2d, 0.0, expr).to(torch.float64)
+    out = {"fc_sums": _segment_sum(expr, block_starts, block_ends, torch.float64)}
+
+    sv, spos = torch.sort(xp, dim=0, stable=True)
+    neq_prev, neq_next = _boundaries(sv)
+    first, last = _block_bounds(neq_prev, neq_next)
+    pad_sorted = torch.isinf(sv)
+
+    if ref_code == -1:
+        # 2x (1-based average rank) = first + last + 2 — exact int32.
+        r2 = first + last + 2
+        # Per-column tie sum: each element of a t-block contributes t^2 - 1.
+        t_blk = (last - first + 1).to(torch.float64)
+        out["tie_col"] = torch.where(pad_sorted, 0.0, t_blk * t_blk - 1.0).sum(0)
+        (r2_l,) = _to_layout_order(spos, r2)
+        r2_l = torch.where(pad2d, 0, r2_l)
+        out["R2"] = _segment_sum(r2_l, block_starts, block_ends, int_within)
+        return out
+
+    sg = grp.long()[spos]  # (value, group)-sorted group codes
+    isref = (sg == ref_code).to(torch.int32)
+    cref = torch.cumsum(isref, dim=0, dtype=torch.int32)
+    cref_excl = cref - isref
+    # Reference elements strictly below my tie block (prefix count at the
+    # block start, propagated forward) and inside it.
+    ref_less = torch.cummax(torch.where(neq_prev, cref_excl, 0), dim=0).values
+    ref_at_end = _reverse_cummin(torch.where(neq_next, cref, _I32_MAX))
+    ref_eq = ref_at_end - ref_less
+    qu2 = 2 * ref_less + ref_eq  # 2 * per-element U_tgt contribution
+    # (value, group) sub-block size t for the 3at(a+t) + (t^3-t) tie terms.
+    gbrk = sg[1:] != sg[:-1]
+    sub_prev = neq_prev.clone()
+    sub_prev[1:] |= gbrk
+    sub_next = neq_next.clone()
+    sub_next[:-1] |= gbrk
+    sfirst, slast = _block_bounds(sub_prev, sub_next)
+    t_sub = (slast - sfirst + 1).to(torch.float64)
+    a_ref = ref_eq.to(torch.float64)
+    q_tie = (t_sub * t_sub - 1.0) + 3.0 * a_ref * (a_ref + t_sub)
+    # Per-column scalar: sum over value blocks of a^3 - a (each reference
+    # element contributes a^2 - 1).
+    ref_term = torch.where(pad_sorted | (isref == 0), 0.0, a_ref * a_ref - 1.0)
+    out["tie_ref_col"] = ref_term.sum(0)
+    qu2_l, qtie_l = _to_layout_order(spos, qu2, q_tie)
+    qu2_l = torch.where(pad2d, 0, qu2_l)
+    qtie_l = torch.where(pad2d, 0.0, qtie_l)
+    out["U2"] = _segment_sum(qu2_l, block_starts, block_ends, int_within)
+    out["tie_seg"] = _segment_sum(qtie_l, block_starts, block_ends, torch.float64)
+    return out
+
+
+def make_tile_fn(
+    layout: PaddedLayout,
+    *,
+    ref_code: int,
+    is_log1p: bool,
+    device: torch.device,
+):
+    """Tile function with the layout staged once on ``device``; returns
+    the plain dict of device tensors."""
+    layout_args = tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for a in (
+            layout.perm, layout.grp, layout.pad_mask,
+            layout.block_starts, layout.block_ends,
+        )
+    )
+    def run(x_raw):
+        return rank_stats_tile(
+            x_raw, *layout_args, ref_code=int(ref_code), is_log1p=bool(is_log1p)
+        )
+
+    return run

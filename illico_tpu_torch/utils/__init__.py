@@ -1,0 +1,1 @@
+"""Utils modules of illico_tpu_torch (mirrors illico_tpu/utils)."""
