@@ -23,7 +23,22 @@ Phases, each printing its own lines:
    float32 Poisson counts with ~90% zeros from a fixed numpy seed, one timed
    public-API call each for OVO and OVR, with the per-stage split and a
    scipy spot check; then the kernel's own time at that shape (CUDA events)
-   beside its memory bound, its plain version and ``torch.bincount``.
+   beside its memory bound, its plain version and ``torch.bincount``;
+6. the compact sort engine (``csort_stats_tile``) on the card against the
+   same function on the CPU: OVO and OVR, positive and negative values,
+   float32 and float64, an all-zero and a full column, real +inf values and
+   a NaN column; integer statistics equal, float64 sums within rtol 1e-12
+   (atol 1e-9);
+7. the normalized main path at full width: the phase-5 shape (300,000 cells
+   x 2,048 genes x 2,000 groups), Poisson counts with ~90% zeros turned into
+   scanpy's ``log1p(x / rowsum * 1e4)`` as float32 and held as CSR; one
+   timed ``engine="auto"`` public-API call each for OVO and OVR (which must
+   pick ``csort``), with the stage split and a scipy spot check; the host
+   compaction of one full tile timed alone, the device side of one tile
+   against the full-column sort engine on the same columns, and one
+   ``engine="sort"`` call on the same matrix, held equal to the csort call.
+
+Backed h5ad inputs are not driven here: the chip machine has no ``h5py``.
 
 Any failure raises and exits non-zero.  The last three lines are the
 kernels' JSON record, the card's ``nvidia-smi`` line and
@@ -43,6 +58,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 SEED = 0
+DEV = "cuda"  # phases 6 and 7 take a CPU rehearsal at small sizes with "cpu"
 
 
 def nvidia_smi_line() -> str:
@@ -192,10 +208,11 @@ def phase_sort():
 
 def scipy_check(tag, df, x, labels, ref, is_log1p, pairs):
     """U exact, p rtol 1e-12, fc rtol 1e-6 against scipy on (group, gene) pairs."""
+    from scipy import sparse
     from scipy.stats import mannwhitneyu
 
     for grp, j in pairs:
-        col = x[:, j].astype(np.float64)
+        col = (x[:, j].toarray().ravel() if sparse.issparse(x) else x[:, j]).astype(np.float64)
         tgt = col[labels == grp]
         rest = col[labels == ref] if ref is not None else col[labels != grp]
         u, p = mannwhitneyu(rest, tgt, method="asymptotic", use_continuity=True,
@@ -327,9 +344,177 @@ def phase_full(stats):
     )
 
 
+def phase_csort():
+    import torch
+
+    from illico_tpu_torch.ops.csort_engine import compact_from_entries, csort_stats_tile
+
+    rng = np.random.default_rng(SEED + 4)
+    n_cells, t_cols, n_groups = 20_000, 64, 50
+    labels = rng.integers(0, n_groups, n_cells)
+    base = poisson_counts(rng, n_cells, t_cols, density=0.2).astype(np.float64)
+    base[:, 0] = 0.0  # all zeros: the zero block alone
+    base[:, 1] = 1.0 + rng.poisson(2.0, n_cells)  # no zeros at all
+    base[rng.random(n_cells) < 0.02, 2] = np.inf  # real +inf ties the pads
+    base[rng.integers(0, n_cells, 5), 3] = np.nan
+    shifted = np.where(base != 0, base - 3.5 + rng.normal(0, 1, base.shape).round(2), 0.0)
+    for sign, xs in (("positive", base), ("negative", shifted)):
+        for dtype in (np.float32, np.float64):
+            x = xs.astype(dtype)
+            r, c = np.nonzero(x)
+            for ref in (None, 3):
+                info, _ = layout_for(labels, ref)
+                tile = compact_from_entries(
+                    x[r, c], r, c, t_cols, info.encoded_groups, info.n_groups,
+                    value_dtype=dtype, need_grp=ref is not None,
+                )
+                res = {}
+                for dev in ("cpu", DEV):
+                    grp = None if tile.grp is None else torch.from_numpy(
+                        tile.grp.astype(np.int32)).to(dev)
+                    out = csort_stats_tile(
+                        torch.from_numpy(tile.vals).to(dev), grp,
+                        torch.from_numpy(tile.indptr).to(dev),
+                        torch.from_numpy(info.counts).to(dev),
+                        ref_code=info.ref_code, is_log1p=False, n_total=info.n_cells,
+                    )
+                    res[dev] = {k: v.cpu().numpy() for k, v in out.items()}
+                if res["cpu"].keys() != res[DEV].keys():
+                    raise AssertionError("csort: key sets differ")
+                for k, want in res["cpu"].items():
+                    if k in ("R2", "U2", "tie_col", "tie_ref_col", "tie_seg"):
+                        np.testing.assert_array_equal(res[DEV][k], want, err_msg=k)
+                    else:
+                        np.testing.assert_allclose(res[DEV][k], want, rtol=1e-12,
+                                                   atol=1e-9, err_msg=k)
+                print(f"[6] csort_stats_tile {'OVR' if ref is None else 'OVO'} {sign} "
+                      f"{np.dtype(dtype).name} M={tile.vals.shape[0]}: cuda == cpu", flush=True)
+
+
+def normalized_csr(rng, n_cells, n_genes):
+    """scanpy's normalize_total + log1p of ~90%-zero Poisson counts, float32 CSR."""
+    from scipy import sparse
+
+    x = poisson_counts(rng, n_cells, n_genes)
+    totals = x.sum(axis=1, keepdims=True)
+    totals[totals == 0] = 1.0
+    np.divide(x, totals, out=x)
+    x *= np.float32(1e4)
+    np.log1p(x, out=x)
+    return sparse.csr_matrix(x)
+
+
+def phase_normalized(stats, n_cells=300_000, n_genes=2048, n_groups=2000, width=1024):
+    import torch
+
+    from illico_tpu_torch import asymptotic_wilcoxon_arrays
+    from illico_tpu_torch.ops import hist_engine as he
+    from illico_tpu_torch.ops.csort_engine import (
+        _stable_argsort,
+        compact_from_entries,
+        csort_stats_tile,
+    )
+    from illico_tpu_torch.ops.rank_engine import rank_stats_tile
+    from illico_tpu_torch.utils.registry import data_handler_registry
+
+    os.environ["ILLICO_TPU_HOST_BUDGET"] = str(16 << 30)
+    rng = np.random.default_rng(SEED + 5)
+    t0 = time.perf_counter()
+    X = normalized_csr(rng, n_cells, n_genes)
+    codes = rng.integers(1, n_groups, n_cells)
+    codes[rng.random(n_cells) < 0.1] = 0
+    labels = np.where(codes == 0, "non-targeting", np.char.add("pert_", codes.astype(str)))
+    print(f"[7] normalized CSR {n_cells} x {n_genes}, {n_groups} groups, {X.nnz} nonzeros "
+          f"(density {X.nnz / (n_cells * n_genes):.4f}), made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pairs = [(str(g), int(j)) for g, j in zip(
+        np.unique(labels)[rng.integers(0, n_groups - 1, 8)], rng.integers(0, n_genes, 8)
+    )]
+    X_csc = X.tocsc()  # fast single-column reads for the scipy checks
+    runs, frames = {}, {}
+    for reference, engine in (("non-targeting", "auto"), (None, "auto"),
+                              ("non-targeting", "sort")):
+        tag = f"{'OVO' if reference else 'OVR'} engine={engine}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        he.hist_pass.launches = 0
+        t0 = time.perf_counter()
+        df = asymptotic_wilcoxon_arrays(X, labels, is_log1p=True, reference=reference,
+                                        engine=engine, progress=False, device=DEV)
+        wall = time.perf_counter() - t0
+        runs[tag] = {
+            "wall_s": wall, "tests_per_s": n_groups * n_genes / wall,
+            "engine": df.attrs["engine"], "stage_s": df.attrs["stage_seconds"],
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "hist_launches": he.hist_pass.launches,
+        }
+        print(f"[7] {tag}: {json.dumps(runs[tag])}", flush=True)
+        want = "csort" if engine == "auto" else engine
+        if df.attrs["engine"] != want or not np.isfinite(df.p_value.values).all():
+            raise AssertionError(f"{tag}: engine {df.attrs['engine']} or non-finite p")
+        if df.shape != (n_groups * n_genes, 3):
+            raise AssertionError(f"{tag}: result shape {df.shape}")
+        scipy_check(f"normalized {tag}", df, X_csc, labels, reference, True,
+                    [(g, j) for g, j in pairs if g != reference])
+        frames[tag] = df
+    a, b = frames["OVO engine=auto"], frames["OVO engine=sort"]
+    np.testing.assert_array_equal(a.statistic.values, b.statistic.values)
+    np.testing.assert_allclose(a.p_value.values, b.p_value.values, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(a.fold_change.values, b.fold_change.values, rtol=1e-6)
+    print("[7] csort == sort on the whole OVO frame; scipy spot checks pass", flush=True)
+
+    # One full csort tile: host compaction alone, then its device side
+    # against the full-column sort engine on the same columns.
+    info, layout = layout_for(labels, "non-targeting")
+    handler = data_handler_registry.get(X)
+    t0 = time.perf_counter()
+    v, r, c = handler.fetch_tile_entries(0, width)
+    entries_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tile = compact_from_entries(v, r, c, width, info.encoded_groups, info.n_groups,
+                                need_grp=True)
+    compact_s = time.perf_counter() - t0
+    # The tiler's (column, group) key, sorted by 16-bit radix passes and by
+    # numpy's stable argsort of the int32 key (timsort).
+    key = c.astype(np.int32) * np.int32(n_groups) + info.encoded_groups[r]
+    t0 = time.perf_counter()
+    radix = _stable_argsort(key, n_groups * width)
+    radix_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timsort = np.argsort(key, kind="stable")
+    timsort_s = time.perf_counter() - t0
+    if not np.array_equal(radix, timsort):
+        raise AssertionError("radix argsort != numpy stable argsort")
+    del key, radix, timsort
+    dev = dict(
+        vals=torch.from_numpy(tile.vals).to(DEV),
+        grp=torch.from_numpy(tile.grp.astype(np.int32)).to(DEV),
+        indptr=torch.from_numpy(tile.indptr).to(DEV),
+    )
+    counts = torch.from_numpy(info.counts).to(DEV)
+    csort_ms = cuda_ms(lambda: csort_stats_tile(
+        dev["vals"], dev["grp"], dev["indptr"], counts, ref_code=info.ref_code,
+        is_log1p=True, n_total=n_cells), reps=5)
+    largs = [torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+             for a in (layout.perm, layout.grp, layout.pad_mask,
+                       layout.block_starts, layout.block_ends)]
+    xd = torch.from_numpy(X[:, :width].toarray()).to(DEV)
+    sort_ms = cuda_ms(lambda: rank_stats_tile(
+        xd, *largs, ref_code=info.ref_code, is_log1p=True), reps=3)
+    print(f"[7] one {width}-column tile: {v.size} entries read in {entries_s:.3f} s, "
+          f"compacted in {compact_s:.3f} s to M={tile.vals.shape[0]} "
+          f"(key argsort: radix {radix_s:.3f} s, numpy stable {timsort_s:.3f} s) "
+          f"({tile.vals.nbytes / 1e6:.1f} MB vals); device csort {csort_ms:.3f} ms, "
+          f"full-column sort {sort_ms:.3f} ms", flush=True)
+    stats["normalized"] = dict(runs=runs, entries_s=entries_s, compact_s=compact_s,
+                               radix_s=radix_s, timsort_s=timsort_s,
+                               m_pad=tile.vals.shape[0], csort_ms=csort_ms,
+                               sort_ms=sort_ms)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7")
     phases = {int(p) for p in parser.parse_args().phases.split(",")}
 
     import torch
@@ -354,6 +539,10 @@ def main() -> int:
         phase_medium()
     if 5 in phases:
         phase_full(stats)
+    if 6 in phases:
+        phase_csort()
+    if 7 in phases:
+        phase_normalized(stats)
     print(f"phases {sorted(phases)} passed in {time.perf_counter() - t0:.1f} s", flush=True)
     kernel = {
         "name": "grouped_hist",

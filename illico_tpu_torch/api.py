@@ -22,7 +22,7 @@ import torch
 from illico_tpu_torch.models.wilcoxon import WilcoxonRunner
 from illico_tpu_torch.utils.groups import encode_and_count_groups
 from illico_tpu_torch.utils.log import logger
-from illico_tpu_torch.utils.registry import data_handler_registry
+from illico_tpu_torch.utils.registry import data_handler_registry, ensure_backed_handlers
 
 __all__ = ["asymptotic_wilcoxon", "asymptotic_wilcoxon_arrays", "resolve_device"]
 
@@ -62,12 +62,18 @@ def asymptotic_wilcoxon(
 
     One-versus-rest (OVR) tests when ``reference`` is None, else
     one-versus-one (OVO) tests of every group against ``reference``, per
-    gene, over an in-RAM dense, CSR or CSC matrix.  ``device`` is a torch
-    device or string (default CUDA).  ``engine`` is ``"auto"`` (histogram
-    engine for count data, sort engine otherwise), ``"hist"`` or ``"sort"``.
+    gene, over an in-RAM dense, CSR or CSC matrix or an h5ad-backed dense
+    or CSC matrix (backed CSR is not supported, as in the reference).
+    ``device`` is a torch device or string (default CUDA).  ``engine``
+    selects the device path: ``"hist"`` (histogram contraction, the fast
+    path for integer-count / log1p data, with an exact per-column sort
+    fallback), ``"sort"`` (full-column sort), ``"csort"`` (compact sort:
+    ranks only the nonzeros, normalized or scaled floats included, and adds
+    the zero block in closed form), or ``"auto"`` (hist for tabulable
+    counts, csort for other data at most half nonzero, sort otherwise).
     ``precompile`` is accepted for signature parity; the kernels build at
-    first use.  ``devices`` (multi-device), ``profile_dir`` and
-    ``engine="csort"`` are not ported yet and raise ``NotImplementedError``.
+    first use.  ``devices`` (multi-device) and ``profile_dir`` are not
+    ported yet and raise ``NotImplementedError``.
     """
     if alternative not in ("two-sided", "greater", "less"):
         raise ValueError(f"Unsupported alternative hypothesis: {alternative}")
@@ -77,6 +83,7 @@ def asymptotic_wilcoxon(
         raise NotImplementedError("profile_dir= is not ported yet.")
     del precompile
     dev = resolve_device(device)
+    ensure_backed_handlers()
     if layer is not None:
         logger.info(f"Using layer '{layer}' for differential expression.")
         X = adata.layers[layer]

@@ -4,10 +4,11 @@ Port of ``illico_tpu.models.wilcoxon`` (single device, host-resident
 inputs).  Gene columns are processed in contiguous tiles: prefetch threads
 densify the next tiles while the device works on the current one; each tile
 is staged through a pinned host buffer, copied to the device without
-blocking, reduced to per-(group, gene) statistics by the histogram or sort
-engine, copied back, and turned into p-values and fold changes on the host.
-Columns the histogram's value table cannot hold are recomputed exactly by
-the sort engine.
+blocking, reduced to per-(group, gene) statistics by the histogram, sort
+or compact sort engine, copied back, and turned into p-values and fold
+changes on the host.  Columns the histogram's value table cannot hold are
+recomputed exactly by the sort engine.  Compact-sort tiles (nonzeros only)
+are built by the prefetch threads and staged as three arrays.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Literal
 import numpy as np
 import torch
 
+from illico_tpu_torch.ops.csort_engine import CompactTile
 from illico_tpu_torch.ops.rank_engine import BLOCK, build_padded_layout, make_tile_fn
 from illico_tpu_torch.stats import fold_change_from_summed_expr, pvalues_from_stats
 from illico_tpu_torch.utils.groups import GroupInfo
@@ -33,6 +35,11 @@ __all__ = ["WilcoxonRunner", "RunResult", "compute_tile_bounds"]
 # OVO sentinel values for the reference group's own row.
 REF_SENTINEL_P = 1.0
 REF_SENTINEL_U = -1.0
+
+# Above this nonzero fraction the compact sort engine's win over the
+# full-column sort fades (compaction costs ~ density x the full sort), and
+# auto-selection keeps the plain sort engine.
+CSORT_MAX_DENSITY = 0.5
 
 # Share of the free device memory the histogram engine's per-tile workspace
 # may take when the auto tile width is chosen.
@@ -138,7 +145,7 @@ class WilcoxonRunner:
         use_continuity: bool = True,
         tie_correct: bool = True,
         alternative: str = "two-sided",
-        engine: Literal["auto", "sort", "hist"] = "auto",
+        engine: Literal["auto", "sort", "hist", "csort"] = "auto",
     ):
         self.handler = handler
         self.info = group_info
@@ -165,12 +172,7 @@ class WilcoxonRunner:
         else:
             self.wire_dtype = np.dtype(self.value_dtype)
 
-        if engine == "csort":
-            raise NotImplementedError(
-                "engine='csort' is not ported to illico_tpu_torch yet; use "
-                "engine='sort' (identical results) or 'auto'."
-            )
-        if engine not in ("auto", "sort", "hist"):
+        if engine not in ("auto", "sort", "hist", "csort"):
             raise ValueError(
                 f"Invalid engine value: {engine!r}. Must be 'auto', 'sort', "
                 "'hist' or 'csort'."
@@ -185,6 +187,7 @@ class WilcoxonRunner:
         self._sampled_vmax: float | None = None
         self._sampled_conforms: bool | None = None
         self._sampled_overflow_frac: float | None = None
+        self._sampled_density: float | None = None
         self._sampled_attempted = False
         if engine == "auto":
             engine = self._auto_engine()
@@ -214,6 +217,15 @@ class WilcoxonRunner:
                 v_buckets=self._v_buckets,
                 device=self.device,
             )
+        elif engine == "csort":
+            from illico_tpu_torch.ops.csort_engine import make_csort_tile_fn
+
+            self.tile_fn = make_csort_tile_fn(
+                group_info,
+                ref_code=group_info.ref_code,
+                is_log1p=self.is_log1p,
+                device=self.device,
+            )
         else:
             self.tile_fn = make_tile_fn(
                 self.layout,
@@ -229,8 +241,26 @@ class WilcoxonRunner:
 
     # -- engine choice ---------------------------------------------------------
     def _auto_engine(self) -> str:
-        """hist for tabulable count data, sort otherwise (the reference's
-        compact-sort choice also lands on sort until that engine is ported)."""
+        """hist for tabulable count data; otherwise csort when the data is
+        sparse enough (exact density from sparse handlers, the sampled one
+        from dense and backed-dense handlers), else sort."""
+        engine = self._auto_full_engine()
+        if engine == "sort":
+            d = self.handler.density()
+            if d is None:
+                # float64 inputs reach here without a prior sample.
+                self._sample_value_stats()
+                d = self._sampled_density
+            if d is not None and d <= CSORT_MAX_DENSITY:
+                logger.trace(
+                    "Density %.2f: using the compact (nonzero-only) sort "
+                    "engine.", d,
+                )
+                engine = "csort"
+        return engine
+
+    def _auto_full_engine(self) -> str:
+        """hist for tabulable count data, sort otherwise."""
         from illico_tpu_torch.ops.hist_engine import HIST_EXACT_MAX_GROUP, MAX_V
 
         if self.value_dtype == np.float64:
@@ -268,12 +298,13 @@ class WilcoxonRunner:
 
     def _auto_tile_width(self) -> int:
         """Tile width for ``batch_size="auto"``: as wide as the engine cap
-        (2048 hist, 512 sort), within the host budget for in-flight tiles
-        and, for the histogram engine, within a share of the free device
-        memory for the (G, V, T) float32 histogram plus the staged tile."""
+        (2048 hist, 1024 csort, whose tiles hold only nonzeros, 512 sort),
+        within the host budget for in-flight tiles and, for the histogram
+        engine, within a share of the free device memory for the (G, V, T)
+        float32 histogram plus the staged tile."""
         from illico_tpu_torch.utils.memory import host_tile_budget
 
-        wide_cap = 2048 if self.engine == "hist" else 512
+        wide_cap = {"hist": 2048, "csort": 1024}.get(self.engine, 512)
         in_flight = max(2, self.n_threads) + 2
         itemsize = int(np.dtype(self.wire_dtype).itemsize)
         per_col = in_flight * self.handler.shape[0] * itemsize
@@ -304,7 +335,9 @@ class WilcoxonRunner:
         Memoized; ``(None, True)`` when sampling fails (it is a heuristic:
         exactness never depends on it, because the contraction detects
         untabulated values per column).  Conformity uses the same numpy
-        float32 expressions that build the value table.
+        float32 expressions that build the value table.  Also records the
+        sampled nonzero fraction (``_sampled_density``, the csort routing
+        input for handlers that cannot report density exactly).
         """
         if self._sampled_attempted:
             return self._sampled_vmax, self._sampled_conforms
@@ -327,6 +360,7 @@ class WilcoxonRunner:
             w = max(1, min(24, n_genes))
             starts = sorted({0, max(0, n_genes // 2 - w // 2), max(0, n_genes - w)})
             vmax, conforms = 0.0, True
+            nz = tot = 0
             col_max: list[float] = []
             for s in starts:
                 arr = np.asarray(self.handler.fetch_tile(s, min(s + w, n_genes)))
@@ -337,6 +371,10 @@ class WilcoxonRunner:
                 vals = arr.ravel()[::step].astype(np.float32)
                 conforms = conforms and _conforms(vals)
                 vmax = max(vmax, float(vals.max()))
+                nz += int(np.count_nonzero(vals))
+                tot += vals.size
+            if tot:
+                self._sampled_density = nz / tot
             if col_max:
                 cm = np.asarray(col_max, np.float64)
                 if self.is_log1p:
@@ -375,24 +413,56 @@ class WilcoxonRunner:
             tile = tile.astype(self.wire_dtype)
         return np.ascontiguousarray(tile)
 
-    def _stage(self, tile: np.ndarray, slot) -> torch.Tensor:
-        """Host tile -> device tensor.  On CUDA the tile goes through a
-        pinned staging buffer (``slot``) and a non-blocking copy; the slot's
-        event marks when the buffer may be refilled."""
-        if self.device.type != "cuda":
-            return torch.from_numpy(tile).to(self.device)
-        n = tile.size
-        if slot["buf"] is None or slot["buf"].numel() < n:
-            slot["buf"] = torch.empty(
-                n, dtype=torch.from_numpy(tile[:0]).dtype, pin_memory=True
+    def _fetch(self, lb: int, ub: int):
+        """Host tile of columns [lb, ub) (runs on a prefetch thread).
+
+        csort: the compacted tile, nonzeros only; a short final tile is
+        padded with empty columns to ``tile_width``."""
+        if self.engine == "csort":
+            from illico_tpu_torch.ops.csort_engine import compact_from_entries
+
+            v, r, c = self.handler.fetch_tile_entries(lb, ub)
+            return compact_from_entries(
+                v, r, c, self.tile_width, self.info.encoded_groups,
+                self.info.n_groups, value_dtype=self.value_dtype,
+                need_grp=not self.info.is_ovr,
             )
-        else:
-            slot["event"].synchronize()
-        host = slot["buf"][:n].view(tile.shape)
-        host.numpy()[...] = tile
-        x = host.to(self.device, non_blocking=True)
+        return self._host_tile(self.handler.fetch_tile(lb, ub))
+
+    def _stage(self, arrays: list[np.ndarray], slot) -> list[torch.Tensor]:
+        """Host arrays -> device tensors.  On CUDA each array goes through
+        a pinned staging buffer of ``slot`` and a non-blocking copy; the
+        slot's event marks when its buffers may be refilled.  A buffer
+        grows to the largest array it has held and is then reused, so
+        tiles whose compacted height varies do not reallocate pinned
+        memory every time."""
+        if self.device.type != "cuda":
+            return [torch.from_numpy(a).to(self.device) for a in arrays]
+        slot["event"].synchronize()
+        bufs = slot["bufs"]
+        staged = []
+        for i, a in enumerate(arrays):
+            dtype = torch.from_numpy(a[:0]).dtype
+            buf = bufs.get(i)
+            if buf is None or buf.numel() < a.size:
+                bufs[i] = buf = torch.empty(a.size, dtype=dtype, pin_memory=True)
+            host = buf[: a.size].view(a.shape)
+            host.numpy()[...] = a
+            staged.append(host.to(self.device, non_blocking=True))
         slot["event"].record()
-        return x
+        return staged
+
+    def _stage_tile(self, tile, slot):
+        """Stage a dense tile, or the arrays of a :class:`CompactTile`
+        (``grp`` as its int16 view: torch's uint16 has few device ops)."""
+        if not isinstance(tile, CompactTile):
+            return self._stage([tile], slot)[0]
+        arrays = [tile.vals, tile.indptr]
+        if tile.grp is not None:
+            arrays.append(tile.grp.view(np.int16))
+        staged = self._stage(arrays, slot)
+        grp = staged[2] if tile.grp is not None else None
+        return CompactTile(staged[0], grp, staged[1], tile.t_cols)
 
     # -- overflow fallback -------------------------------------------------------
     def _recompute_with_sort_engine(self, cols: np.ndarray, consume_stats) -> None:
@@ -461,8 +531,12 @@ class WilcoxonRunner:
                 u_tgt = out["U2"].numpy()[:, :w] / 2.0
                 U[:, cols] = nr * nt - u_tgt
                 tie[:, cols] = out["tie_ref_col"].numpy()[None, :w] + out["tie_seg"].numpy()[:, :w]
+            # A NaN expression sum reads as 0.0, as in the reference, whose
+            # packed result wire carries fc sums as an integer mantissa and
+            # exponent and converts a NaN mantissa to 0.
+            fc_sums = out["fc_sums"].numpy()[:, :w]
             fc[:, cols] = fold_change_from_summed_expr(
-                out["fc_sums"].numpy()[:, :w], info.counts, info.ref_code,
+                np.where(np.isnan(fc_sums), 0.0, fc_sums), info.counts, info.ref_code,
             )
             pvals[:, cols] = pvalues_from_stats(
                 U[:, cols], tie[:, cols], nr, nt,
@@ -478,7 +552,7 @@ class WilcoxonRunner:
         # One pinned staging slot per tile that can be in flight between
         # its fetch and its device copy.
         slots = [
-            {"buf": None, "event": torch.cuda.Event() if cuda else None}
+            {"bufs": {}, "event": torch.cuda.Event() if cuda else None}
             for _ in range(n_prefetch + 1)
         ]
         pending: deque = deque()  # (lb, ub, host dict, done event)
@@ -493,19 +567,18 @@ class WilcoxonRunner:
             if pbar is not None:
                 pbar.update(G * (ub - lb))
 
-        fetch = lambda lb, ub: self._host_tile(self.handler.fetch_tile(lb, ub))  # noqa: E731
         t_loop0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=n_prefetch) as pool:
             ahead = min(n_prefetch, len(self.bounds))
-            futures = {i: pool.submit(fetch, *self.bounds[i]) for i in range(ahead)}
+            futures = {i: pool.submit(self._fetch, *self.bounds[i]) for i in range(ahead)}
             for i, (lb, ub) in enumerate(self.bounds):
                 t0 = time.perf_counter()
                 tile = futures.pop(i).result()
                 clock.add("fetch", time.perf_counter() - t0)
                 if i + ahead < len(self.bounds):
-                    futures[i + ahead] = pool.submit(fetch, *self.bounds[i + ahead])
+                    futures[i + ahead] = pool.submit(self._fetch, *self.bounds[i + ahead])
                 clock.mark(None)
-                x = self._stage(tile, slots[i % len(slots)])
+                x = self._stage_tile(tile, slots[i % len(slots)])
                 clock.mark("h2d")
                 out = self.tile_fn(x, clock.mark) if self.engine == "hist" else self.tile_fn(x)
                 clock.mark("contract" if self.engine == "hist" else "kernel")

@@ -1,9 +1,13 @@
 """Input-format dispatch: data handlers and their registry.
 
-Port of the in-RAM part of ``illico_tpu.utils.registry``: every handler
-produces *dense gene tiles* ``(n_cells, tile_width)`` in original row order,
-and one device engine consumes them.  Registered here: ``np.ndarray``, scipy
-CSR and CSC (matrix and array classes).  Any other type raises ``KeyError``
+Port of ``illico_tpu.utils.registry`` without the device-resident handler:
+every handler produces *dense gene tiles* ``(n_cells, tile_width)`` in
+original row order, and sparse-aware handlers also stream a window's
+nonzero entries for the compact sort engine.  Registered here: ``np.ndarray``
+and scipy CSR and CSC (matrix and array classes); :func:`ensure_backed_handlers`
+adds ``h5py.Dataset`` (backed dense, when ``h5py`` imports), this package's
+:class:`illico_tpu_torch.io.h5ad.BackedCSC`, and anndata's backed CSC (when
+``anndata`` imports).  Backed CSR, like any other type, raises ``KeyError``
 with the same message as the reference package.
 """
 
@@ -14,7 +18,12 @@ from abc import ABC, abstractmethod
 import numpy as np
 from scipy import sparse as sp
 
-__all__ = ["DataHandler", "data_handler_registry", "DataHandlerRegistry"]
+__all__ = [
+    "DataHandler",
+    "data_handler_registry",
+    "DataHandlerRegistry",
+    "ensure_backed_handlers",
+]
 
 
 class DataHandlerRegistry(dict):
@@ -59,9 +68,8 @@ class DataHandler(ABC):
         """Dense (n_cells, ub - lb) tile of columns [lb, ub), original row order."""
 
     @abstractmethod
-    def fetch_columns(self, idx) -> np.ndarray:
-        """Dense (n_cells, len(idx)) gather of arbitrary columns (the
-        histogram-overflow fallback)."""
+    def footprint(self) -> int:
+        """Bytes needed to hold the full matrix in RAM."""
 
     def tile_footprint(self, width: int) -> int:
         """Host bytes materialized per tile of ``width`` columns."""
@@ -69,6 +77,44 @@ class DataHandler(ABC):
 
     def validate(self) -> None:
         """Input invariant checks; raise ValueError on violation."""
+
+    def density(self) -> float | None:
+        """Fraction of nonzero entries, or None when unknown (the runner
+        then estimates it from its value sample).  Drives the compact sort
+        engine's routing only, never exactness."""
+        return None
+
+    def fetch_tile_entries(self, lb: int, ub: int):
+        """Nonzero entries ``(values, rows, cols)`` of columns [lb, ub).
+
+        ``cols`` are tile-relative; entry order is arbitrary (the compact
+        tiler sorts).  The default extracts them from the dense tile; sparse
+        handlers override it with O(window nnz) reads.
+        """
+        tile = self.fetch_tile(lb, ub)
+        r, c = np.nonzero(tile)
+        return tile[r, c], r, c
+
+    def fetch_columns(self, idx) -> np.ndarray:
+        """Dense (n_cells, len(idx)) gather of arbitrary columns (the
+        histogram-overflow fallback).  Adjacent requested columns are
+        coalesced into ranges, so backed handlers read once per range."""
+        idx = np.asarray(idx, dtype=np.int64)
+        if idx.size == 0:
+            return np.empty((int(self.shape[0]), 0), dtype=self.dtype)
+        order = np.argsort(idx, kind="stable")
+        s = idx[order]
+        breaks = np.flatnonzero(np.diff(s) != 1) + 1
+        starts = np.concatenate(([0], breaks))
+        ends = np.concatenate((breaks, [s.size]))
+        parts = [
+            self.fetch_tile(int(s[a]), int(s[e - 1]) + 1)
+            for a, e in zip(starts, ends)
+        ]
+        dense = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+        out = np.empty_like(dense)
+        out[:, order] = dense
+        return out
 
 
 @data_handler_registry.register(np.ndarray)
@@ -85,6 +131,9 @@ class DenseDataHandler(DataHandler):
     def fetch_columns(self, idx):
         return self.data[:, np.asarray(idx)]
 
+    def footprint(self):
+        return self.data.nbytes
+
 
 class _SparseDataHandler(DataHandler):
     @property
@@ -93,6 +142,23 @@ class _SparseDataHandler(DataHandler):
 
     def fetch_columns(self, idx):
         return self.data[:, np.asarray(idx)].toarray()
+
+    def footprint(self):
+        d = self.data
+        return d.data.nbytes + d.indices.nbytes + d.indptr.nbytes
+
+    def density(self):
+        n_rows, n_cols = self.data.shape
+        return float(self.data.nnz) / max(1, int(n_rows) * int(n_cols))
+
+    def _window(self, lb, ub):
+        """Column slice [lb, ub) with duplicate entries summed, as the
+        dense paths' ``toarray`` sums them (a fresh slice: no mutation of
+        the user's matrix)."""
+        sub = self.data[:, lb:ub]
+        if not sub.has_canonical_format:
+            sub.sum_duplicates()
+        return sub
 
 
 @data_handler_registry.register(sp.csr_matrix)
@@ -104,6 +170,13 @@ class CSRDataHandler(_SparseDataHandler):
         out = np.zeros((self.data.shape[0], ub - lb), dtype=self.dtype)
         self.data[:, lb:ub].tocsc().toarray(out=out)
         return out
+
+    def fetch_tile_entries(self, lb, ub):
+        sub = self._window(lb, ub)
+        rows = np.repeat(
+            np.arange(sub.shape[0], dtype=np.int64), np.diff(sub.indptr)
+        )
+        return sub.data, rows, sub.indices.astype(np.int64)
 
     def validate(self):
         indices, indptr = self.data.indices, self.data.indptr
@@ -136,6 +209,101 @@ class CSCDataHandler(_SparseDataHandler):
     def fetch_tile(self, lb, ub):
         return self.data[:, lb:ub].toarray()
 
+    def fetch_tile_entries(self, lb, ub):
+        sub = self._window(lb, ub)
+        cols = np.repeat(
+            np.arange(sub.shape[1], dtype=np.int64), np.diff(sub.indptr)
+        )
+        return sub.data, sub.indices.astype(np.int64), cols
+
 
 data_handler_registry[sp.csr_array] = CSRDataHandler
 data_handler_registry[sp.csc_array] = CSCDataHandler
+
+
+# -- backed (out-of-core) inputs ---------------------------------------------
+class _BackedCSCHandler(DataHandler):
+    """Backed CSC: column windows stream from h5ad storage, so the heap
+    stays O(tile), never O(matrix)."""
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+
+class IllicoBackedCSCHandler(_BackedCSCHandler):
+    """This package's own lazy CSC (:class:`illico_tpu_torch.io.h5ad.BackedCSC`)."""
+
+    def fetch_tile(self, lb, ub):
+        return self.data.densify_columns(lb, ub)
+
+    def fetch_tile_entries(self, lb, ub):
+        # O(window nnz) disk read: the compact sort tiler never densifies
+        # a backed tile just to re-sparsify it.
+        return self.data.window_entries(lb, ub)
+
+    def footprint(self):
+        return self.data.nbytes
+
+
+class H5pyDatasetDataHandler(DataHandler):
+    """Backed dense matrix (``h5py.Dataset``): column windows from disk."""
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def fetch_tile(self, lb, ub):
+        return np.asarray(self.data[:, lb:ub])
+
+    def footprint(self):
+        return int(np.prod(self.data.shape)) * self.data.dtype.itemsize
+
+
+class AnnDataBackedCSCHandler(_BackedCSCHandler):
+    """anndata's backed CSC dataset (``_CSCDataset``), read through the
+    private members anndata keeps for it."""
+
+    def fetch_tile(self, lb, ub):
+        return self.data[:, lb:ub].toarray()
+
+    def fetch_tile_entries(self, lb, ub):
+        d = self.data
+        indptr = np.asarray(d._indptr, dtype=np.int64)
+        s, e = int(indptr[lb]), int(indptr[ub])
+        rows = np.asarray(d._indices[s:e], dtype=np.int64)
+        cols = np.repeat(
+            np.arange(ub - lb, dtype=np.int64), np.diff(indptr[lb : ub + 1])
+        )
+        return d._data[s:e], rows, cols
+
+    def footprint(self):
+        d = self.data
+        return (
+            d._data.dtype.itemsize * d._data.shape[0]
+            + d._indices.dtype.itemsize * d._indices.shape[0]
+            + d._indptr.nbytes
+        )
+
+
+def ensure_backed_handlers() -> None:
+    """Register the backed handlers whose libraries import (idempotent).
+
+    Deferred to the first API call so that importing the package needs
+    neither ``h5py`` nor ``anndata``.  ``BackedCSR`` stays unregistered.
+    """
+    from illico_tpu_torch.io.h5ad import BackedCSC
+
+    data_handler_registry[BackedCSC] = IllicoBackedCSCHandler
+    try:
+        import h5py
+    except ImportError:
+        pass
+    else:
+        data_handler_registry[h5py.Dataset] = H5pyDatasetDataHandler
+    try:
+        from anndata._core import sparse_dataset as _sd
+    except ImportError:
+        pass
+    else:
+        data_handler_registry[_sd._CSCDataset] = AnnDataBackedCSCHandler

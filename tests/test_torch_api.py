@@ -122,16 +122,90 @@ def test_float64_routes_to_sort(engine):
         )
 
 
+def _reference_engine(ad, reference=None):
+    """The engine ``engine="auto"`` picks in the JAX package."""
+    from illico_tpu.models.wilcoxon import WilcoxonRunner
+    from illico_tpu.utils.groups import encode_and_count_groups
+    from illico_tpu.utils.registry import data_handler_registry
+
+    _, info = encode_and_count_groups(np.asarray(ad.obs["pert"]), reference)
+    return WilcoxonRunner(data_handler_registry.get(ad.X), info, is_log1p=False).engine
+
+
 def test_normalized_float32_routes_to_sort():
-    """Non-count float32 data never hits the value table: auto picks sort
-    (the reference picks its compact sort here; results are the same)."""
+    """Non-count float32 data that is mostly nonzero never hits the value
+    table and is too dense for the compact sort: auto picks sort, as the
+    reference does."""
+    adata = _make_rand_adata("dense", seed=3)
+    X = ((adata.X + 1.0) / np.float32(3.7)).astype(np.float32)
+    ad = type(adata)(X, adata.obs.copy(), adata.var.copy())
+    got, want = _both(ad, is_log1p=False, group_keys="pert", reference=None)
+    assert got.attrs["engine"] == _reference_engine(ad) == "sort"
+    _check_frames(got, want)
+    _check_scipy(got, ad, None)
+
+
+@pytest.mark.parametrize("test", ["ovo", "ovr"])
+def test_normalized_float32_routes_to_csort(test):
+    """Non-count float32 data at most half nonzero: auto picks the compact
+    sort, as the reference does."""
     adata = _make_rand_adata("dense", seed=3)
     X = (adata.X / np.float32(3.7)).astype(np.float32)
     ad = type(adata)(X, adata.obs.copy(), adata.var.copy())
-    got, want = _both(ad, is_log1p=False, group_keys="pert", reference=None)
-    assert got.attrs["engine"] == "sort"
+    reference = "pert_0" if test == "ovo" else None
+    got, want = _both(ad, is_log1p=False, group_keys="pert", reference=reference)
+    assert got.attrs["engine"] == _reference_engine(ad, reference) == "csort"
     _check_frames(got, want)
-    _check_scipy(got, ad, None)
+    _check_scipy(got, ad, reference)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr", "csc"])
+@pytest.mark.parametrize("test", ["ovo", "ovr"])
+def test_csort_engine_matches_reference_and_scipy(fmt, test):
+    adata = _make_rand_adata(fmt, seed=4)
+    reference = "pert_0" if test == "ovo" else None
+    kw = dict(is_log1p=False, group_keys="pert", reference=reference, engine="csort",
+              batch_size=8)  # two tiles, the second one short
+    got, want = _both(adata, **kw)
+    assert got.attrs["engine"] == "csort"
+    _check_frames(got, want)
+    _check_scipy(got, adata, reference)
+
+
+def _nan_input():
+    """3,000 cells x 40 genes of Poisson(2) at ~20% density, groups
+    ctl/a/b/c, and one NaN in a cell of group c."""
+    rng = np.random.RandomState(0)
+    X = rng.poisson(2.0, (3000, 40)).astype(np.float32)
+    X[rng.rand(3000, 40) >= 0.2] = 0
+    groups = rng.choice(["ctl", "a", "b", "c"], 3000)
+    groups[0] = "c"
+    X[0, 0] = np.nan
+    return X, groups
+
+
+@pytest.mark.parametrize("engine", ["sort", "csort", "auto"])
+@pytest.mark.parametrize("test", ["ovo", "ovr"])
+def test_nan_input_matches_reference(engine, test):
+    """A NaN makes the fold-change sums of its group, and of every group
+    after it in code order, NaN.  The reference reads a NaN sum as 0.0
+    (its result wire's NaN-to-integer conversion), so fold changes against
+    a NaN reference mean are inf and those of a NaN group are 0."""
+    X, groups = _nan_input()
+    reference = "ctl" if test == "ovo" else None
+    kw = dict(reference=reference, engine=engine, progress=False)
+    got = illico_tpu_torch.asymptotic_wilcoxon_arrays(X, groups, device="cpu", **kw)
+    want = illico_tpu.asymptotic_wilcoxon_arrays(X, groups, **kw)
+    assert got.attrs["engine"] == (engine if engine != "auto" else "csort")
+    _check_frames(got, want)
+    for col in ("p_value", "statistic", "fold_change"):
+        np.testing.assert_array_equal(np.isnan(got[col]), np.isnan(want[col]), err_msg=col)
+        np.testing.assert_array_equal(np.isinf(got[col]), np.isinf(want[col]), err_msg=col)
+    fc0 = got.xs("gene_0", level="feature").fold_change
+    if reference:
+        assert np.isinf(fc0.drop("ctl")).all()
+    else:
+        assert (fc0[["c", "ctl"]] == 0.0).all()
 
 
 def test_arrays_api_matches_reference():
@@ -164,8 +238,8 @@ def test_argument_errors(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         illico_tpu_torch.asymptotic_wilcoxon(adata, **kw)
-    with pytest.raises(NotImplementedError, match="csort"):
-        illico_tpu_torch.asymptotic_wilcoxon(adata, engine="csort", device="cpu", **kw)
+    with pytest.raises(ValueError, match="Invalid engine"):
+        illico_tpu_torch.asymptotic_wilcoxon(adata, engine="bogus", device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="devices"):
         illico_tpu_torch.asymptotic_wilcoxon(adata, devices=2, device="cpu", **kw)
     with pytest.raises(ValueError, match="Unsupported alternative"):
@@ -181,9 +255,28 @@ def test_argument_errors(monkeypatch):
 def test_import_leaves_jax_out():
     code = (
         "import sys, illico_tpu_torch, illico_tpu_torch.models.wilcoxon, "
-        "illico_tpu_torch.ops.hist_engine, illico_tpu_torch.utils.cuda_build; "
+        "illico_tpu_torch.ops.hist_engine, illico_tpu_torch.utils.cuda_build, "
+        "illico_tpu_torch.ops.csort_engine, illico_tpu_torch.io.h5ad; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'illico_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_in_ram_call_runs_without_h5py():
+    """h5py is a soft dependency: with it unimportable, the package imports
+    and an in-RAM API call (csort, which registers the backed handlers)
+    runs."""
+    code = (
+        "import sys; sys.modules['h5py'] = None\n"
+        "import numpy as np, illico_tpu_torch\n"
+        "x = np.zeros((50, 3), np.float32); x[::7] = 1.5\n"
+        "df = illico_tpu_torch.asymptotic_wilcoxon_arrays(x, np.arange(50) % 2, "
+        "device='cpu', progress=False, engine='csort')\n"
+        "assert 'h5py' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "print(df.shape)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "(6, 3)" in res.stdout
