@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --phases 1,2    # build and kernel check only
+    python3 chip_smoke.py --phases 1,8    # build, then the wire on the card
+    python3 chip_smoke.py --phases 1,5,9  # counts at full width, host and device input
 
 Phases, each printing its own lines:
 
-1. the card (``nvidia-smi`` name and power limit) and the nvcc build of
-   every kernel in ``illico_tpu_torch/csrc``;
+1. the card (``nvidia-smi`` name and power limit), the nvcc build of every
+   kernel in ``illico_tpu_torch/csrc`` and the C++ build of the native tail
+   (``csrc/tail.cpp``), with its compiler line;
 2. the histogram kernel (``csrc/hist_kernel.cu``) against its plain torch
    version on the card, bit for bit: V in {128, 256, 512}, raw and log1p
    tables, T=1000, 2000 groups including a 1-cell group, adversarial values
@@ -21,8 +24,10 @@ Phases, each printing its own lines:
 5. the main path at full width: 300,000 cells x 2,048 genes x 2,000 groups
    (one auto tile; the K562-essential scale cut from 8,000 genes), dense
    float32 Poisson counts with ~90% zeros from a fixed numpy seed, one timed
-   public-API call each for OVO and OVR, with the per-stage split and a
-   scipy spot check; then the kernel's own time at that shape (CUDA events)
+   public-API call each for OVO and OVR with the native tail on one thread
+   and one each with ``ILLICO_TPU_TAIL_THREADS`` at the host's core count,
+   with the per-stage split and a scipy spot check; every tile must take
+   the native tail; then the kernel's own time at that shape (CUDA events)
    beside its memory bound, its plain version and ``torch.bincount``;
 6. the compact sort engine (``csort_stats_tile``) on the card against the
    same function on the CPU: OVO and OVR, positive and negative values,
@@ -36,7 +41,21 @@ Phases, each printing its own lines:
    pick ``csort``), with the stage split and a scipy spot check; the host
    compaction of one full tile timed alone, the device side of one tile
    against the full-column sort engine on the same columns, and one
-   ``engine="sort"`` call on the same matrix, held equal to the csort call.
+   ``engine="sort"`` call on the same matrix, held equal to the csort call;
+8. the packed result wire on the card, at 20,000 cells x 300 genes x 150
+   groups (control 40%, so OVO takes the nnz-split wire and OVR the row
+   split): for one histogram, one sort and one compact-sort tile the buffer
+   packed on CUDA equals the buffer packed by the same code on the CPU byte
+   for byte, and its unpacking equals the unpacked engine's dict; the pack
+   alone is timed; the f96 tier's special values (0, -0.0, a subnormal,
+   2**63, NaN, +-inf) pack to the same bytes on both devices; and public-API
+   calls through the native tail equal the same calls through the numpy tail
+   (U and fold change equal, p within rtol 1e-14);
+9. device-resident input at full width: the phase-5 matrix as a CUDA float32
+   tensor, OVO and OVR through ``engine="auto"``: the frame equals the
+   host-input frame bit for bit, ``h2d`` is 0 and ``fetch`` ~0, every tile
+   takes the native tail, scipy spot checks; then one profiled call
+   (``profile_dir``) whose trace gives the card's busy share of the call.
 
 Backed h5ad inputs are not driven here: the chip machine has no ``h5py``.
 
@@ -48,6 +67,7 @@ kernels' JSON record, the card's ``nvidia-smi`` line and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -57,6 +77,7 @@ import time
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+FULL_SHAPE = (300_000, 2048, 2000)  # cells, genes, groups of phases 5, 7 and 9
 SEED = 0
 DEV = "cuda"  # phases 6 and 7 take a CPU rehearsal at small sizes with "cpu"
 
@@ -105,7 +126,43 @@ def layout_for(labels, ref=None):
 
 
 # --------------------------------------------------------------------------
+@contextlib.contextmanager
+def tail_threads(n):
+    """``ILLICO_TPU_TAIL_THREADS`` set to ``n`` inside the block."""
+    old = os.environ.get("ILLICO_TPU_TAIL_THREADS")
+    os.environ["ILLICO_TPU_TAIL_THREADS"] = str(n)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ILLICO_TPU_TAIL_THREADS"]
+        else:
+            os.environ["ILLICO_TPU_TAIL_THREADS"] = old
+
+
+@contextlib.contextmanager
+def numpy_tail():
+    """The native library hidden inside the block, so consumers take numpy."""
+    import illico_tpu_torch.native as native
+
+    native.native_available()
+    saved = native._LIB
+    native._LIB = None
+    try:
+        yield
+    finally:
+        native._LIB = saved
+
+
+def require_native(tag, df):
+    """Fail unless every tile of the call went through the native tail."""
+    path = df.attrs["consume_path"]
+    if path["numpy"] != 0 or path["native"] < 1:
+        raise AssertionError(f"{tag}: consume path {path}, expected all native")
+
+
 def phase_build():
+    import illico_tpu_torch.native as native
     from illico_tpu_torch.utils.cuda_build import BUILD_INFO, SRC_DIR, build_libraries
 
     stems = sorted(p.stem for p in SRC_DIR.glob("*.cu"))
@@ -116,6 +173,16 @@ def phase_build():
         for line in BUILD_INFO[stem]["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[1]   {stem}: {line.strip()}")
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("the native tail (csrc/tail.cpp) did not build or load")
+    command = native.BUILD_INFO["command"]
+    print(f"[1] native tail in {time.perf_counter() - t0:.2f} s: "
+          f"{command or 'already built'} -> "
+          f"{os.path.relpath(native.BUILD_INFO['path'])}", flush=True)
+    if command and "-fopenmp" not in command:
+        print("[1]   built WITHOUT OpenMP: ILLICO_TPU_TAIL_THREADS will have no effect",
+              flush=True)
 
 
 def phase_kernel(stats):
@@ -253,58 +320,96 @@ def phase_medium():
             if df.attrs["engine"] != "hist" or df.attrs["n_fallback_cols"] < hot.size:
                 raise AssertionError(f"{tag}: engine {df.attrs['engine']}, "
                                      f"{df.attrs['n_fallback_cols']} fallback columns")
+            require_native(tag, df)
             scipy_check(tag, df, x, labels, reference, is_log1p, pairs)
             print(f"[4] {tag}: {wall:.2f} s, {df.attrs['n_fallback_cols']} "
                   f"sort-fallback columns, {len(pairs)} pairs match scipy", flush=True)
 
 
-def phase_full(stats):
+def full_counts(ctx):
+    """The full-width counts matrix, labels and spot-check pairs, made once."""
+    if "x" not in ctx:
+        rng = np.random.default_rng(SEED + 3)
+        n_cells, n_genes, n_groups = FULL_SHAPE
+        t0 = time.perf_counter()
+        x = poisson_counts(rng, n_cells, n_genes)
+        codes = rng.integers(1, n_groups, n_cells)
+        codes[rng.random(n_cells) < 0.1] = 0  # control group, ~10% of cells
+        labels = np.where(codes == 0, "non-targeting", np.char.add("pert_", codes.astype(str)))
+        print(f"[5/9] data {n_cells} x {n_genes}, {n_groups} groups, "
+              f"{np.mean(x == 0):.3f} zeros, made in {time.perf_counter() - t0:.1f} s", flush=True)
+        pairs = [(str(g), int(j)) for g, j in zip(
+            np.unique(labels)[rng.integers(0, n_groups - 1, 8)], rng.integers(0, n_genes, 8)
+        )]
+        ctx.update(x=x, labels=labels, pairs=pairs, frames={})
+    return ctx["x"], ctx["labels"], ctx["pairs"]
+
+
+def full_call(tag, X, labels, reference, **kw):
+    """One timed public-API call at full width; returns (frame, record)."""
     import torch
 
     from illico_tpu_torch import asymptotic_wilcoxon_arrays
+
+    n_groups, n_genes = FULL_SHAPE[2], FULL_SHAPE[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    df = asymptotic_wilcoxon_arrays(X, labels, reference=reference, progress=False, **kw)
+    wall = time.perf_counter() - t0
+    rec = {
+        "wall_s": wall, "tests_per_s": n_groups * n_genes / wall,
+        "engine": df.attrs["engine"], "consume_path": df.attrs["consume_path"],
+        "tail_threads": int(os.environ.get("ILLICO_TPU_TAIL_THREADS", "1")),
+        "stage_s": df.attrs["stage_seconds"],
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"{tag}: {json.dumps(rec)}", flush=True)
+    if df.attrs["engine"] != "hist" or not np.isfinite(df.p_value.values).all():
+        raise AssertionError(f"{tag}: engine {df.attrs['engine']} or non-finite p")
+    if df.shape != (n_groups * n_genes, 3):
+        raise AssertionError(f"{tag}: result shape {df.shape}")
+    n_tiles = -(-n_genes // 2048)
+    if df.attrs["consume_path"] != {"native": n_tiles, "numpy": 0}:
+        raise AssertionError(f"{tag}: consume path {df.attrs['consume_path']}, "
+                             f"expected {n_tiles} native tiles")
+    return df, rec
+
+
+def phase_full(stats, ctx):
+    import torch
+
     from illico_tpu_torch.ops import hist_engine as he
 
     # One auto tile of 2048 columns: lift the host budget for in-flight
     # tiles (default 8 GiB at most) so it does not split the tile in two.
     os.environ["ILLICO_TPU_HOST_BUDGET"] = str(16 << 30)
-    rng = np.random.default_rng(SEED + 3)
-    n_cells, n_genes, n_groups = 300_000, 2048, 2000
-    t0 = time.perf_counter()
-    x = poisson_counts(rng, n_cells, n_genes)
-    codes = rng.integers(1, n_groups, n_cells)
-    codes[rng.random(n_cells) < 0.1] = 0  # control group, ~10% of cells
-    labels = np.where(codes == 0, "non-targeting", np.char.add("pert_", codes.astype(str)))
-    print(f"[5] data {n_cells} x {n_genes}, {n_groups} groups, "
-          f"{np.mean(x == 0):.3f} zeros, made in {time.perf_counter() - t0:.1f} s", flush=True)
-    pairs = [(str(g), int(j)) for g, j in zip(
-        np.unique(labels)[rng.integers(0, n_groups - 1, 8)], rng.integers(0, n_genes, 8)
-    )]
+    n_cells, n_genes, n_groups = FULL_SHAPE
+    x, labels, pairs = full_counts(ctx)
+    cores = os.cpu_count() or 1
     torch.cuda.synchronize()
     he.hist_pass.launches = 0  # count the main path's launches only
     runs = {}
-    for reference in ("non-targeting", None):
-        tag = "OVO" if reference else "OVR"
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        df = asymptotic_wilcoxon_arrays(x, labels, reference=reference, progress=False)
-        wall = time.perf_counter() - t0
-        runs[tag] = {
-            "wall_s": wall, "tests_per_s": n_groups * n_genes / wall,
-            "engine": df.attrs["engine"], "stage_s": df.attrs["stage_seconds"],
-            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
-        }
-        print(f"[5] {tag}: {json.dumps(runs[tag])}", flush=True)
-        if df.attrs["engine"] != "hist" or not np.isfinite(df.p_value.values).all():
-            raise AssertionError(f"{tag}: engine {df.attrs['engine']} or non-finite p")
-        if df.shape != (n_groups * n_genes, 3):
-            raise AssertionError(f"{tag}: result shape {df.shape}")
-        scipy_check(f"full {tag}", df, x, labels, reference, False,
-                    [(g, j) for g, j in pairs if g != reference])
+    for threads in (1, cores):
+        for reference in ("non-targeting", None):
+            tag = "OVO" if reference else "OVR"
+            with tail_threads(threads):
+                df, rec = full_call(f"[5] {tag} tail_threads={threads}", x, labels, reference)
+            runs[f"{tag} x{threads}"] = rec
+            if threads == 1:
+                scipy_check(f"full {tag}", df, x, labels, reference, False,
+                            [(g, j) for g, j in pairs if g != reference])
+                ctx["frames"][tag] = df
+            else:  # bit-equal at any thread count
+                np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
     launches = he.hist_pass.launches
-    if launches < 2:
-        raise AssertionError(f"main path launched the hist kernel {launches} times")
-    print(f"[5] hist kernel launches on the main path: {launches} (one per call "
-          f"and tile); scipy spot checks pass", flush=True)
+    # Per call: one launch by the warm-up and one per tile.
+    if launches != 4 * 2:
+        raise AssertionError(f"main path launched the hist kernel {launches} times, expected 8")
+    print(f"[5] hist kernel launches on the main path: {launches} (per call: the "
+          f"warm-up and one per tile); every tile took the native tail; frames "
+          f"bit-equal at 1 and {cores} tail threads; scipy spot checks pass", flush=True)
+    stats["full"] = runs
 
     # The kernel alone at the main path's shape.
     info, layout = layout_for(labels, "non-targeting")
@@ -447,6 +552,7 @@ def phase_normalized(stats, n_cells=300_000, n_genes=2048, n_groups=2000, width=
             "engine": df.attrs["engine"], "stage_s": df.attrs["stage_seconds"],
             "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
             "hist_launches": he.hist_pass.launches,
+            "consume_path": df.attrs["consume_path"],
         }
         print(f"[7] {tag}: {json.dumps(runs[tag])}", flush=True)
         want = "csort" if engine == "auto" else engine
@@ -454,6 +560,7 @@ def phase_normalized(stats, n_cells=300_000, n_genes=2048, n_groups=2000, width=
             raise AssertionError(f"{tag}: engine {df.attrs['engine']} or non-finite p")
         if df.shape != (n_groups * n_genes, 3):
             raise AssertionError(f"{tag}: result shape {df.shape}")
+        require_native(tag, df)
         scipy_check(f"normalized {tag}", df, X_csc, labels, reference, True,
                     [(g, j) for g, j in pairs if g != reference])
         frames[tag] = df
@@ -512,9 +619,198 @@ def phase_normalized(stats, n_cells=300_000, n_genes=2048, n_groups=2000, width=
                                sort_ms=sort_ms)
 
 
+def phase_wire(stats):
+    import torch
+
+    from illico_tpu_torch import asymptotic_wilcoxon_arrays
+    from illico_tpu_torch.ops import hist_engine as he
+    from illico_tpu_torch.ops import wire
+    from illico_tpu_torch.ops.csort_engine import compact_from_entries, make_csort_tile_fn
+    from illico_tpu_torch.ops.rank_engine import make_tile_fn
+
+    rng = np.random.default_rng(SEED + 6)
+    n_cells, n_genes, n_groups = 20_000, 300, 150
+    counts = poisson_counts(rng, n_cells, n_genes, density=0.1)
+    counts[rng.integers(0, n_cells, 30), 7] = 650.0  # a column off the value table
+    codes = rng.integers(1, n_groups, n_cells)
+    codes[rng.random(n_cells) < 0.4] = 0  # control 40%: tie tier u40, groups < 256 cells
+    labels = np.char.add("g", codes.astype(str))
+    r, c = np.nonzero(counts)
+    cpu, cuda = torch.device("cpu"), torch.device(DEV)
+    out = {}
+    for ref in ("g0", None):
+        mode = "OVO" if ref else "OVR"
+        info, layout = layout_for(labels, ref)
+        ctile = compact_from_entries(counts[r, c], r, c, n_genes, info.encoded_groups,
+                                     info.n_groups, need_grp=ref is not None)
+        makers = {
+            "hist": lambda dev, pack: he.make_hist_tile_fn(
+                layout, ref_code=info.ref_code, is_log1p=False, device=dev, pack=pack),
+            "sort": lambda dev, pack: make_tile_fn(
+                layout, ref_code=info.ref_code, is_log1p=False, device=dev, pack=pack),
+            "csort": lambda dev, pack: make_csort_tile_fn(
+                info, ref_code=info.ref_code, is_log1p=False, device=dev, pack=pack),
+        }
+        for engine, make in makers.items():
+            tile = {d: (ctile if engine == "csort" else torch.from_numpy(counts).to(d))
+                    for d in (cpu, cuda)}
+            fn = {d: make(d, True) for d in (cpu, cuda)}
+            if engine == "hist":
+                st = fn[cuda]._statics
+                want_wire = st["nnz_split"] if ref else st["u2_split_code"] >= 0
+                if not want_wire:
+                    raise AssertionError(f"[8] hist {mode}: statics {st} miss the wire under test")
+            buf = {d: fn[d](tile[d]).cpu().numpy() for d in (cpu, cuda)}
+            if not np.array_equal(buf[cpu], buf[cuda]):
+                raise AssertionError(f"[8] {engine} {mode}: CUDA-packed != CPU-packed buffer")
+            got = fn[cuda].unpack(buf[cuda])
+            plain = {k: v.cpu().numpy() for k, v in make(cuda, False)(tile[cuda]).items()}
+            st = getattr(fn[cuda], "_statics", {})
+            for key, split in (("fc_sums", "fc_split_code"), ("R2", "u2_split_code")):
+                code = st.get(split, -1)
+                if engine == "hist" and code >= 0 and key in got:
+                    row = got["fc_split_col" if key == "fc_sums" else "r2_split_col"]
+                    got[key] = got[key].astype(np.float64)
+                    got[key][code] = row
+            # Columns off the value table are recomputed by the caller; the
+            # two forms need not agree on their (discarded) statistics.
+            keep = ~plain.get("overflow_cols", np.zeros(n_genes, bool))
+            if engine == "hist" and keep.all():
+                raise AssertionError("[8] the off-table column was not flagged")
+            for key, want in plain.items():
+                have = np.asarray(got[key], np.float64)[..., :n_genes]
+                want = want.astype(np.float64)
+                if ref and key in ("U2", "tie_seg"):
+                    want[info.ref_code] = 0.0  # zeroed on the wire
+                if key != "overflow_cols":
+                    have, want = have[..., keep], want[..., keep]
+                np.testing.assert_array_equal(have, want, err_msg=f"{engine} {mode} {key}")
+            n_tests = info.n_groups * n_genes
+            if engine == "hist":  # time the pack alone, on the contraction's outputs
+                arrs = he.prepare_hist_inputs(layout, 128, False, cuda)
+                hist = he.hist_pass(tile[cuda], arrs["perm"], arrs["indptr"], arrs["order"],
+                                    arrs["table"], is_log1p=False)
+                kw = {k: v for k, v in st.items() if k not in ("compute_fc", "is_log1p")}
+                stat = he.hist_contract(hist, arrs["ppg"], **kw)
+                narrow = wire._narrow_map(st)
+                width = he.packed_width(n_genes)
+                pack_ms = cuda_ms(lambda: wire.pack_device_outputs(
+                    he._pad_columns(stat, width), narrow), reps=20)
+                out[f"hist {mode}"] = dict(bytes_per_test=buf[cuda].size / n_tests, pack_ms=pack_ms)
+                print(f"[8] hist {mode}: CUDA pack == CPU pack ({buf[cuda].size} bytes, "
+                      f"{buf[cuda].size / n_tests:.3f} B/test), unpack == unpacked contract; "
+                      f"pack alone {pack_ms:.3f} ms", flush=True)
+            else:
+                out[f"{engine} {mode}"] = dict(bytes_per_test=buf[cuda].size / n_tests)
+                print(f"[8] {engine} {mode}: CUDA pack == CPU pack ({buf[cuda].size} bytes, "
+                      f"{buf[cuda].size / n_tests:.3f} B/test), unpack == unpacked dict",
+                      flush=True)
+
+    # The f96 and word-split tiers at their special values, on both devices.
+    special = np.array([0.0, -0.0, 5e-324, 1.0, -2.5, 1 / 3, 2.0**53, 2.0**63 - 1024,
+                        2.0**63, 3 * 2.0**64, np.nan, np.inf, -np.inf, 1e300], np.float64)
+    for narrow in ({"t": 12}, {}):
+        bufs = [wire.pack_device_outputs({"t": torch.from_numpy(special).to(d)}, narrow)[0]
+                .cpu().numpy() for d in (cpu, cuda)]
+        if not np.array_equal(*bufs):
+            raise AssertionError(f"[8] special values pack differently on CUDA ({narrow})")
+    print("[8] f96 and word-split tiers: special values pack to the same bytes on CUDA "
+          "and CPU", flush=True)
+
+    # The native tail against the numpy tail, through the public API.
+    for engine in ("hist", "sort", "csort"):
+        for ref in ("g0", None):
+            kw = dict(reference=ref, engine=engine, progress=False, device=DEV)
+            nat = asymptotic_wilcoxon_arrays(counts, labels, **kw)
+            require_native(f"[8] {engine}", nat)
+            with numpy_tail():
+                ref_df = asymptotic_wilcoxon_arrays(counts, labels, **kw)
+            if ref_df.attrs["consume_path"]["native"] != 0:
+                raise AssertionError("[8] the numpy-tail call still took the native tail")
+            np.testing.assert_array_equal(nat.statistic.values, ref_df.statistic.values)
+            np.testing.assert_array_equal(nat.fold_change.values, ref_df.fold_change.values)
+            np.testing.assert_allclose(nat.p_value.values, ref_df.p_value.values,
+                                       rtol=1e-14, atol=0)
+            print(f"[8] {engine} {'OVO' if ref else 'OVR'}: native tail == numpy tail "
+                  f"(U, fc equal; p rtol 1e-14); {nat.attrs['n_fallback_cols']} fallback "
+                  f"columns", flush=True)
+    stats["wire"] = out
+
+
+def phase_device_input(stats, ctx):
+    import torch
+
+    from illico_tpu_torch import asymptotic_wilcoxon_arrays
+    from illico_tpu_torch.ops import hist_engine as he
+
+    os.environ["ILLICO_TPU_HOST_BUDGET"] = str(16 << 30)
+    n_cells, n_genes, n_groups = FULL_SHAPE
+    x, labels, pairs = full_counts(ctx)
+    for reference in ("non-targeting", None):  # host-input frames, when phase 5 did not run
+        tag = "OVO" if reference else "OVR"
+        if tag not in ctx["frames"]:
+            ctx["frames"][tag], _ = full_call(f"[9] {tag} host input", x, labels, reference)
+    xd = torch.from_numpy(x).cuda()
+    torch.cuda.synchronize()
+    he.hist_pass.launches = 0
+    runs = {}
+    for reference in ("non-targeting", None):
+        tag = "OVO" if reference else "OVR"
+        df, rec = full_call(f"[9] {tag} CUDA tensor", xd, labels, reference)
+        runs[tag] = rec
+        st = rec["stage_s"]
+        if st["h2d"] != 0.0 or st["fetch"] > 0.05:
+            raise AssertionError(f"[9] {tag}: h2d {st['h2d']} s, fetch {st['fetch']} s "
+                                 f"on device-resident input")
+        np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
+        scipy_check(f"device input {tag}", df, x, labels, reference, False,
+                    [(g, j) for g, j in pairs if g != reference])
+    launches = he.hist_pass.launches
+    if launches != 2 * 2:
+        raise AssertionError(f"[9] device-input path launched the hist kernel {launches} "
+                             f"times, expected 4")
+    print(f"[9] frames equal the host-input frames bit for bit; h2d 0, fetch ~0; "
+          f"{launches} hist kernel launches; scipy spot checks pass", flush=True)
+
+    # One profiled call: the card's busy share from the profiler's trace.
+    # A throwaway profiled call on a small input first pays the profiler's
+    # own start-up (seconds, once per process).
+    profile_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "illico_tpu_torch", "_build", "profile")
+    t0 = time.perf_counter()
+    asymptotic_wilcoxon_arrays(xd[:2000, :8].contiguous(), labels[:2000], reference=None,
+                               progress=False, profile_dir=profile_dir)
+    startup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    asymptotic_wilcoxon_arrays(xd, labels, reference=None, progress=False,
+                               profile_dir=profile_dir)
+    wall = time.perf_counter() - t0
+    trace = os.path.join(profile_dir, "trace.json")
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:  # union of the device spans
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    if not spans:
+        raise AssertionError("[9] the profiler's trace holds no device activity")
+    plain_wall = runs["OVR"]["wall_s"]
+    print(f"[9] profiled OVR call on the CUDA tensor: wall {wall:.3f} s with the profiler "
+          f"on (its start-up call took {startup:.1f} s), {len(spans)} device spans, device "
+          f"busy {busy_us / 1e6:.4f} s = {100 * busy_us / 1e6 / wall:.1f}% of the profiled "
+          f"call and {100 * busy_us / 1e6 / plain_wall:.1f}% of the unprofiled call's "
+          f"{plain_wall:.3f} s; trace {os.path.getsize(trace) / 1e6:.1f} MB at {trace}",
+          flush=True)
+    stats["device_input"] = dict(runs=runs, launches=launches, profiled_wall_s=wall,
+                                 device_busy_s=busy_us / 1e6)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
     phases = {int(p) for p in parser.parse_args().phases.split(",")}
 
     import torch
@@ -528,6 +824,7 @@ def main() -> int:
     print(f"[1] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     stats: dict = {}
+    ctx: dict = {}  # the full-width matrix and host-input frames, shared by phases 5 and 9
     t0 = time.perf_counter()
     if 1 in phases:
         phase_build()
@@ -538,11 +835,16 @@ def main() -> int:
     if 4 in phases:
         phase_medium()
     if 5 in phases:
-        phase_full(stats)
+        phase_full(stats, ctx)
+    if 9 in phases:  # before phase 7: it shares phase 5's matrix and frames
+        phase_device_input(stats, ctx)
+    ctx.clear()
     if 6 in phases:
         phase_csort()
     if 7 in phases:
         phase_normalized(stats)
+    if 8 in phases:
+        phase_wire(stats)
     print(f"phases {sorted(phases)} passed in {time.perf_counter() - t0:.1f} s", flush=True)
     kernel = {
         "name": "grouped_hist",
@@ -550,6 +852,7 @@ def main() -> int:
         "source": "illico_tpu_torch/csrc/hist_kernel.cu",
         "replaces": "illico_tpu/ops/hist_engine.py:80",
         "launches": stats.get("launches"),
+        "launches_device_input": stats.get("device_input", {}).get("launches"),
         "max_abs_err": stats.get("max_abs_err"),
         "ms": stats.get("ms"),
         "plain_ms": stats.get("plain_ms"),

@@ -7,7 +7,8 @@ the reference sample, exact) and ``fold_change``.  Computation runs on
 ``device="cpu"``, where every kernel runs as its plain torch version).
 
 The DataFrame's ``attrs["stage_seconds"]`` holds the run's per-stage
-seconds (see :class:`illico_tpu_torch.models.wilcoxon.RunResult`).
+seconds (see :class:`illico_tpu_torch.models.wilcoxon.RunResult`) and
+``attrs["consume_path"]`` how many tiles the native tail and numpy consumed.
 """
 
 from __future__ import annotations
@@ -27,8 +28,22 @@ from illico_tpu_torch.utils.registry import data_handler_registry, ensure_backed
 __all__ = ["asymptotic_wilcoxon", "asymptotic_wilcoxon_arrays", "resolve_device"]
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; None means CUDA, which must exist."""
+def resolve_device(device, X=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means CUDA, which must exist.
+
+    A CUDA tensor ``X`` is device-resident input: with ``device=None`` the
+    run takes the tensor's device, and an explicit ``device`` that names
+    another one raises ``ValueError`` (the matrix is not moved)."""
+    if isinstance(X, torch.Tensor) and X.is_cuda:
+        if device is not None:
+            dev = torch.device(device)
+            if dev.type != "cuda" or dev.index not in (None, X.device.index):
+                raise ValueError(
+                    f"The input tensor lives on {X.device} but device={device!r} was "
+                    "requested; move the tensor, or leave device=None to run "
+                    "where it is."
+                )
+        return X.device
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -71,24 +86,30 @@ def asymptotic_wilcoxon(
     ranks only the nonzeros, normalized or scaled floats included, and adds
     the zero block in closed form), or ``"auto"`` (hist for tabulable
     counts, csort for other data at most half nonzero, sort otherwise).
-    ``precompile`` is accepted for signature parity; the kernels build at
-    first use.  ``devices`` (multi-device) and ``profile_dir`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``X`` may also be a ``torch.Tensor``: a CUDA tensor is used where it
+    lives (no fetch, no host-to-device copy; ``device`` defaults to its
+    device), a CPU tensor is host input like an ``ndarray``.
+    ``precompile`` warms the run up before the tile loop: it builds and
+    loads the CUDA kernel and the native C++ tail and runs the tile function
+    once on a zero tile of the run's shape.  ``profile_dir`` wraps the run
+    in ``torch.profiler.profile`` and writes a Chrome trace
+    (``trace.json``) into that directory.  ``devices`` (multi-device) is not
+    ported yet and raises ``NotImplementedError``.
+
+    ``df.attrs`` carries ``stage_seconds``, ``engine``, ``n_fallback_cols``
+    and ``consume_path`` (tiles consumed by the native tail and by numpy).
     """
     if alternative not in ("two-sided", "greater", "less"):
         raise ValueError(f"Unsupported alternative hypothesis: {alternative}")
     if devices is not None:
         raise NotImplementedError("devices= (multi-device runs) is not ported yet.")
-    if profile_dir is not None:
-        raise NotImplementedError("profile_dir= is not ported yet.")
-    del precompile
-    dev = resolve_device(device)
     ensure_backed_handlers()
     if layer is not None:
         logger.info(f"Using layer '{layer}' for differential expression.")
         X = adata.layers[layer]
     else:
         X = adata.X
+    dev = resolve_device(device, X)
 
     handler = data_handler_registry.get(X)
     handler.validate()
@@ -117,12 +138,15 @@ def asymptotic_wilcoxon(
         engine=engine,
     )
     setup = _time.perf_counter() - t0
-    res = runner.run(progress=progress)
+    if precompile:
+        runner.precompile()
+    res = runner.run(progress=progress, profile_dir=profile_dir)
 
     df = build_result_frame(unique_groups, adata.var_names, res.stacked.reshape(-1, 3))
     df.attrs["stage_seconds"] = {"setup": setup, **res.stage_seconds}
     df.attrs["engine"] = runner.engine
     df.attrs["n_fallback_cols"] = res.n_fallback_cols
+    df.attrs["consume_path"] = dict(res.consume_path)
     return df
 
 

@@ -1,19 +1,25 @@
 """Orchestration of the asymptotic Wilcoxon test over gene tiles.
 
-Port of ``illico_tpu.models.wilcoxon`` (single device, host-resident
-inputs).  Gene columns are processed in contiguous tiles: prefetch threads
-densify the next tiles while the device works on the current one; each tile
-is staged through a pinned host buffer, copied to the device without
-blocking, reduced to per-(group, gene) statistics by the histogram, sort
-or compact sort engine, copied back, and turned into p-values and fold
-changes on the host.  Columns the histogram's value table cannot hold are
-recomputed exactly by the sort engine.  Compact-sort tiles (nonzeros only)
-are built by the prefetch threads and staged as three arrays.
+Port of ``illico_tpu.models.wilcoxon`` (single device).  Gene columns are
+processed in contiguous tiles: prefetch threads densify the next tiles while
+the device works on the current one; each tile is staged through a pinned
+host buffer, copied to the device without blocking, reduced to
+per-(group, gene) statistics by the histogram, sort or compact sort engine,
+packed into one ``uint8`` buffer (:mod:`illico_tpu_torch.ops.wire`), copied
+back into pinned memory, and turned into p-values and fold changes on the
+host by the native C++ consumer (:mod:`illico_tpu_torch.native`), or by
+numpy when that library is not available.  Columns the histogram's value
+table cannot hold are recomputed exactly by the sort engine.  Compact-sort
+tiles (nonzeros only) are built by the prefetch threads and staged as three
+arrays.  A matrix that already lives on the device (a ``torch.Tensor``
+there) is sliced in place: no fetch, no staging, every tile dispatched up
+front.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -45,8 +51,12 @@ CSORT_MAX_DENSITY = 0.5
 # may take when the auto tile width is chosen.
 _DEVICE_MEM_SHARE = 0.5
 
+# Rows per sampled window that the per-column sums and nonzero counts read
+# (a row stride keeps it between this and twice this on taller inputs).
+_COLSTAT_ROWS = 1 << 16
+
 # Device stages timed per tile, in stream order (see _StageClock).
-DEVICE_STAGES = ("h2d", "kernel", "contract", "d2h")
+DEVICE_STAGES = ("h2d", "kernel", "contract", "pack", "d2h")
 
 
 @dataclasses.dataclass
@@ -55,9 +65,12 @@ class RunResult:
     stacked: np.ndarray
     # Seconds per stage: host "fetch" (waiting on prefetch), device
     # DEVICE_STAGES (CUDA events; host clock on a CPU device), host "tail"
-    # (p-values and fold changes) and "fallback" (sort-engine recompute).
+    # (consuming the packed buffers: p-values and fold changes), "fallback"
+    # (sort-engine recompute) and "precompile" (the warm-up, when run).
     stage_seconds: dict
     n_fallback_cols: int
+    # Tiles of the main loop consumed by the native library and by numpy.
+    consume_path: dict = dataclasses.field(default_factory=dict)
 
 
 def compute_tile_bounds(
@@ -102,7 +115,9 @@ class _StageClock:
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.seconds = {s: 0.0 for s in ("fetch", *DEVICE_STAGES, "tail", "fallback")}
+        self.seconds = {
+            s: 0.0 for s in ("precompile", "fetch", *DEVICE_STAGES, "tail", "fallback")
+        }
         self._marks: list[tuple[str, object]] = []
 
     def mark(self, stage: str | None) -> None:
@@ -165,7 +180,10 @@ class WilcoxonRunner:
         # Narrow host->device wire: integer counts and float16 ship in their
         # storage dtype and the engines cast to float32 on the device.
         # uint16 is widened on the host (torch's uint16 has few device ops).
-        if in_dtype == np.uint16:
+        # A matrix already on the device crosses no wire and is cast there.
+        if self._device_resident:
+            self.wire_dtype = np.dtype(self.value_dtype)
+        elif in_dtype == np.uint16:
             self.wire_dtype = np.dtype(np.int32)
         elif (in_dtype.kind in "iu" and in_dtype.itemsize < 4) or in_dtype == np.float16:
             self.wire_dtype = in_dtype
@@ -176,6 +194,13 @@ class WilcoxonRunner:
             raise ValueError(
                 f"Invalid engine value: {engine!r}. Must be 'auto', 'sort', "
                 "'hist' or 'csort'."
+            )
+        if engine == "csort" and self._device_resident:
+            raise ValueError(
+                "engine='csort' requires host-resident input (dense numpy, "
+                "CSR/CSC, or backed matrices): the compacted tiles are "
+                "built by the host tiler. Device-resident tensors use "
+                "engine='sort' or 'hist'."
             )
         if engine == "hist" and self.value_dtype == np.float64:
             raise ValueError(
@@ -188,6 +213,7 @@ class WilcoxonRunner:
         self._sampled_conforms: bool | None = None
         self._sampled_overflow_frac: float | None = None
         self._sampled_density: float | None = None
+        self._sampled_colstats: tuple | None = None
         self._sampled_attempted = False
         if engine == "auto":
             engine = self._auto_engine()
@@ -216,6 +242,8 @@ class WilcoxonRunner:
                 is_log1p=self.is_log1p,
                 v_buckets=self._v_buckets,
                 device=self.device,
+                fc_u8_hint=self._fc_u8_hint(),
+                nnz_split_hint=self._nnz_split_hint(),
             )
         elif engine == "csort":
             from illico_tpu_torch.ops.csort_engine import make_csort_tile_fn
@@ -232,6 +260,7 @@ class WilcoxonRunner:
                 ref_code=group_info.ref_code,
                 is_log1p=self.is_log1p,
                 device=self.device,
+                pack=True,
             )
         logger.trace(
             "Engine %s, tile width %d for %d genes (%d tiles) on %s.",
@@ -245,7 +274,7 @@ class WilcoxonRunner:
         sparse enough (exact density from sparse handlers, the sampled one
         from dense and backed-dense handlers), else sort."""
         engine = self._auto_full_engine()
-        if engine == "sort":
+        if engine == "sort" and not self._device_resident:
             d = self.handler.density()
             if d is None:
                 # float64 inputs reach here without a prior sample.
@@ -296,27 +325,33 @@ class WilcoxonRunner:
                 return "sort"
         return "hist"
 
+    @property
+    def _device_resident(self) -> bool:
+        """The matrix is a tensor on a device already (no fetch, no H2D)."""
+        return getattr(self.handler, "is_device", False)
+
     def _auto_tile_width(self) -> int:
         """Tile width for ``batch_size="auto"``: as wide as the engine cap
         (2048 hist, 1024 csort, whose tiles hold only nonzeros, 512 sort),
-        within the host budget for in-flight tiles and, for the histogram
-        engine, within a share of the free device memory for the (G, V, T)
-        float32 histogram plus the staged tile."""
+        within the host budget for in-flight tiles (host inputs) and, for
+        the histogram engine, within a share of the free device memory for
+        the (G, V, T) float32 histogram plus the staged tile."""
         from illico_tpu_torch.utils.memory import host_tile_budget
 
         wide_cap = {"hist": 2048, "csort": 1024}.get(self.engine, 512)
-        in_flight = max(2, self.n_threads) + 2
-        itemsize = int(np.dtype(self.wire_dtype).itemsize)
-        per_col = in_flight * self.handler.shape[0] * itemsize
-        budget = host_tile_budget()
-        wide_cap = min(wide_cap, int(budget / max(per_col, 1)))
-        if wide_cap < 128:
-            logger.warning(
-                "Host tile budget %.0f MB allows only %d columns but the "
-                "engine floor is 128 (in-flight tiles will hold ~%.0f MB); "
-                "raise ILLICO_TPU_HOST_BUDGET or lower n_threads.",
-                budget / 1e6, max(wide_cap, 0), per_col * 128 / 1e6,
-            )
+        if not self._device_resident:
+            in_flight = max(2, self.n_threads) + 2
+            itemsize = int(np.dtype(self.wire_dtype).itemsize)
+            per_col = in_flight * self.handler.shape[0] * itemsize
+            budget = host_tile_budget()
+            wide_cap = min(wide_cap, int(budget / max(per_col, 1)))
+            if wide_cap < 128:
+                logger.warning(
+                    "Host tile budget %.0f MB allows only %d columns but the "
+                    "engine floor is 128 (in-flight tiles will hold ~%.0f MB); "
+                    "raise ILLICO_TPU_HOST_BUDGET or lower n_threads.",
+                    budget / 1e6, max(wide_cap, 0), per_col * 128 / 1e6,
+                )
         free = device_free_bytes(self.device)
         if self.engine == "hist" and free is not None:
             from illico_tpu_torch.ops.hist_engine import CONTRACT_CHUNK_BYTES
@@ -329,15 +364,56 @@ class WilcoxonRunner:
             wide_cap = min(wide_cap, int(usable / per_dev_col))
         return max(128, (wide_cap // 128) * 128)
 
+    def _sampled_device_windows(self, starts, w: int):
+        """Window statistics of a device-resident matrix with ONE pull for
+        all windows: per window the max, the per-column max, sum and nonzero
+        count, and the conformity evidence.
+
+        Raw counts: the table is the nonnegative integers and float32
+        round/compare are exact, so the FULL window is checked on the
+        device and one flag comes back.  log1p data: the table is built
+        with numpy's float32 ``log1p``, which the device's may differ from
+        by ULPs, so a ~4k-row strided slab comes back and the host probes it
+        with the expressions that build the table.
+        """
+        x = self.handler.data
+        parts, slabs = [], []
+        for s in starts:
+            t = x[:, s : s + w].to(torch.float32)
+            parts += [
+                t.max().reshape(1).to(torch.float64),
+                t.max(dim=0).values.to(torch.float64),
+                t.sum(dim=0, dtype=torch.float64),
+                (t != 0).sum(dim=0).to(torch.float64),
+            ]
+            if self.is_log1p:
+                slabs.append(t[:: max(1, t.shape[0] // 4096)].reshape(-1))
+            else:
+                ok = ((t == torch.round(t)) & (t >= 0)).all()
+                parts.append(ok.reshape(1).to(torch.float64))
+        flat = torch.cat(parts + [v.to(torch.float64) for v in slabs]).cpu().numpy()
+        per = 1 + 3 * w + (0 if self.is_log1p else 1)
+        head = flat[: per * len(starts)].reshape(len(starts), per)
+        vmax = head[:, 0]
+        col_max, col_sum, col_nnz = (head[:, 1 + i * w : 1 + (i + 1) * w] for i in range(3))
+        evidence = (
+            flat[per * len(starts) :].astype(np.float32) if self.is_log1p
+            else head[:, -1] != 0
+        )
+        return vmax, col_max, col_sum, col_nnz, evidence
+
     def _sample_value_stats(self):
         """(max value, histogram-tabulable) from head/middle/tail samples.
 
         Memoized; ``(None, True)`` when sampling fails (it is a heuristic:
         exactness never depends on it, because the contraction detects
         untabulated values per column).  Conformity uses the same numpy
-        float32 expressions that build the value table.  Also records the
-        sampled nonzero fraction (``_sampled_density``, the csort routing
-        input for handlers that cannot report density exactly).
+        float32 expressions that build the value table, on the host, for
+        host and device-resident inputs alike.  Also records the sampled
+        nonzero fraction (``_sampled_density``, the csort routing input for
+        handlers that cannot report density exactly) and the per-column sums
+        and nonzero counts (``_sampled_colstats``, which feed
+        :meth:`_fc_u8_hint`).
         """
         if self._sampled_attempted:
             return self._sampled_vmax, self._sampled_conforms
@@ -360,33 +436,118 @@ class WilcoxonRunner:
             w = max(1, min(24, n_genes))
             starts = sorted({0, max(0, n_genes // 2 - w // 2), max(0, n_genes - w)})
             vmax, conforms = 0.0, True
-            nz = tot = 0
-            col_max: list[float] = []
-            for s in starts:
-                arr = np.asarray(self.handler.fetch_tile(s, min(s + w, n_genes)))
-                if not arr.size:
-                    continue
-                col_max.extend(arr.max(axis=0).astype(np.float64).tolist())
-                step = max(1, arr.size // 100_000)
-                vals = arr.ravel()[::step].astype(np.float32)
-                conforms = conforms and _conforms(vals)
-                vmax = max(vmax, float(vals.max()))
-                nz += int(np.count_nonzero(vals))
-                tot += vals.size
-            if tot:
-                self._sampled_density = nz / tot
+            col_max: list[float] = []  # per-column maxima
+            col_sum: list[float] = []  # per-column value sums (fc-u8 hint)
+            col_nnz: list[float] = []  # per-column nonzero counts
+            rows_sampled = 0
+            if self._device_resident:
+                ms, cms, csums, cnnz, evidence = self._sampled_device_windows(starts, w)
+                vmax = max(vmax, float(np.max(ms)))
+                col_max.extend(cms.ravel().tolist())
+                col_sum.extend(csums.ravel().tolist())
+                col_nnz.extend(cnnz.ravel().tolist())
+                rows_sampled = int(self.handler.shape[0])
+                if self.is_log1p:
+                    conforms = conforms and _conforms(evidence)
+                else:
+                    conforms = conforms and bool(np.all(evidence))
+            else:
+                nz = tot = 0
+                for s in starts:
+                    arr = np.asarray(self.handler.fetch_tile(s, min(s + w, n_genes)))
+                    if not arr.size:
+                        continue
+                    col_max.extend(arr.max(axis=0).astype(np.float64).tolist())
+                    # Sums and nonzero counts feed rate estimates only: on
+                    # tall inputs every few rows do (all rows below 2**17).
+                    sub = arr[:: max(1, arr.shape[0] // _COLSTAT_ROWS)]
+                    col_sum.extend(sub.sum(axis=0, dtype=np.float64).tolist())
+                    col_nnz.extend(
+                        np.count_nonzero(sub, axis=0).astype(np.float64).tolist()
+                    )
+                    rows_sampled = int(sub.shape[0])
+                    step = max(1, arr.size // 100_000)
+                    vals = arr.ravel()[::step].astype(np.float32)
+                    conforms = conforms and _conforms(vals)
+                    vmax = max(vmax, float(vals.max()))
+                    nz += int(np.count_nonzero(vals))
+                    tot += vals.size
+                if tot:
+                    self._sampled_density = nz / tot
             if col_max:
                 cm = np.asarray(col_max, np.float64)
                 if self.is_log1p:
                     with np.errstate(over="ignore"):
                         cm = np.expm1(cm.astype(np.float32)).astype(np.float64)
                 self._sampled_overflow_frac = float(np.mean(cm >= MAX_V - 1))
+            if col_sum and rows_sampled:
+                self._sampled_colstats = (
+                    np.asarray(col_sum, np.float64),
+                    np.asarray(col_nnz, np.float64),
+                    rows_sampled,
+                )
         except Exception:  # sampling must never break the run
             logger.warning("Value sampling failed; assuming tabulable data.")
             self._sampled_vmax, self._sampled_conforms = None, True
             return None, True
         self._sampled_vmax, self._sampled_conforms = vmax, conforms
         return vmax, conforms
+
+    def _fc_u8_hint(self) -> bool:
+        """Should the fc-residual uint8 tier engage? (hist nnz-split only.)
+
+        fc_res[g, j] = sum of (value - 1) over group g's nonzeros in column
+        j ~ k * (mean_nonzero - 1).  Estimated per sampled column from
+        (nonzero fraction) * (largest non-reference group) * (mean nonzero
+        value); if more than ~5% of columns look at risk of exceeding uint8,
+        the 2-byte tier stays.  A wrong True only costs sort-engine fallback
+        columns (exceptions and overflow flags keep exactness).  Raw counts
+        only: log1p sampling sees log-space sums.
+        """
+        if (
+            self.is_log1p
+            or not self._sampled_conforms
+            or self._sampled_colstats is None
+            or self.info.ref_code < 0
+        ):
+            return False
+        col_sum, col_nnz, rows = self._sampled_colstats
+        counts = np.asarray(self.info.counts, np.float64)
+        others = np.delete(counts, self.info.ref_code)
+        if not others.size:
+            return False
+        m_max = float(others.max())
+        mean_nz = col_sum / np.maximum(col_nnz, 1.0)
+        est = (mean_nz - 1.0) * (col_nnz / rows) * m_max
+        unsafe = 1.6 * est + 48.0 > 255.0
+        return bool(np.mean(unsafe) < 0.05)
+
+    def _nnz_split_hint(self) -> bool:
+        """May the nnz-split OVO wire engage, as far as the sample can tell?
+
+        Its ``u2_res`` array holds U2_nz[g, j], about (reference nonzeros in
+        column j) per nonzero of group g, in a uint16; entries beyond it
+        take one of 24 exception slots per column, and a column with more
+        goes to the sort fallback whole.  With a large control group and
+        moderately dense counts most columns would: this estimates U2_nz
+        for a 3-sigma nonzero count of the largest non-reference group, per
+        sampled column, and keeps the wire off when over 5% of the columns
+        exceed uint16.  Like :meth:`_fc_u8_hint`, a wrong answer costs
+        bytes or fallback columns, never exactness.  (The reference package
+        always engages the wire when the group sizes allow.)
+        """
+        if self._sampled_colstats is None or self.info.ref_code < 0:
+            return True
+        _, col_nnz, rows = self._sampled_colstats
+        counts = np.asarray(self.info.counts, np.float64)
+        others = np.delete(counts, self.info.ref_code)
+        if not others.size:
+            return True
+        density = col_nnz / rows
+        ref_nnz = density * counts[self.info.ref_code]
+        k_mean = density * float(others.max())
+        k_high = k_mean + 3.0 * np.sqrt(k_mean) + 1.0
+        return bool(np.mean(ref_nnz * k_high > 65535.0) < 0.05)
 
     def _pick_v_buckets(self) -> int:
         """Size the value table (128/256/512) from the sampled max count."""
@@ -407,17 +568,78 @@ class WilcoxonRunner:
         )
         return 512
 
+    # -- warm-up ------------------------------------------------------------------
+    def precompile(self) -> float:
+        """Pay the one-time costs before the tile loop: build and load the
+        native tail (C++ compiler) and, on CUDA, the histogram kernel
+        (nvcc), then run the tile function once on a zero tile of the run's
+        shape, so the loop meets a loaded library, initialized device
+        modules and a warm allocator.  (The sort engine's zero tile is 8
+        columns wide.)  Returns the seconds it took."""
+        from illico_tpu_torch.native import native_available
+
+        t0 = time.perf_counter()
+        native_available()
+        if self.engine == "csort":
+            from illico_tpu_torch.ops.csort_engine import _SEG_BLOCK
+
+            g, t = self.info.n_groups, self.tile_width
+            tile = CompactTile(
+                np.full((_SEG_BLOCK, t), np.inf, self.value_dtype),
+                None if self.info.is_ovr else np.full((_SEG_BLOCK, t), g, np.uint16),
+                np.zeros((g + 1, t), np.int32),
+                t,
+            )
+            buf = self.tile_fn(tile)
+        else:
+            # The sort engine builds nothing lazily and a tile of it costs
+            # as much as a tile of the run: a narrow one warms it up.
+            width = self.tile_width if self.engine == "hist" else min(self.tile_width, 8)
+            x = torch.zeros(
+                (self.handler.shape[0], width),
+                dtype=torch.from_numpy(np.empty(0, self.wire_dtype)).dtype,
+                device=self.device,
+            )
+            buf = self.tile_fn(x)
+            del x
+        buf.cpu()
+        seconds = time.perf_counter() - t0
+        logger.trace(
+            "Warm-up of the %s tile function (%d, %d): %.2fs.",
+            self.engine, self.handler.shape[0], self.tile_width, seconds,
+        )
+        self._precompile_seconds = seconds
+        return seconds
+
     # -- tile plumbing ----------------------------------------------------------
-    def _host_tile(self, tile: np.ndarray) -> np.ndarray:
+    def _host_tile(self, tile: np.ndarray, width: int | None = None) -> np.ndarray:
+        """Contiguous tile in the wire dtype, zero-padded to ``width``
+        columns when given."""
+        if width is not None and tile.shape[1] < width:
+            buf = np.zeros((tile.shape[0], width), self.wire_dtype)
+            buf[:, : tile.shape[1]] = tile
+            return buf
         if tile.dtype != self.wire_dtype:
             tile = tile.astype(self.wire_dtype)
         return np.ascontiguousarray(tile)
 
-    def _fetch(self, lb: int, ub: int):
-        """Host tile of columns [lb, ub) (runs on a prefetch thread).
+    def _device_tile(self, tile: torch.Tensor, width: int) -> torch.Tensor:
+        """Contiguous tile of a device-resident matrix in the value dtype,
+        a short one zero-padded to ``width`` columns."""
+        dtype = torch.float64 if self.value_dtype == np.float64 else torch.float32
+        tile = tile.to(dtype)
+        if tile.shape[1] < width:
+            return torch.nn.functional.pad(tile, (0, width - tile.shape[1]))
+        return tile.contiguous()
 
-        csort: the compacted tile, nonzeros only; a short final tile is
-        padded with empty columns to ``tile_width``."""
+    def _fetch(self, lb: int, ub: int):
+        """Tile of columns [lb, ub).  Host inputs: runs on a prefetch
+        thread.  csort: the compacted tile, nonzeros only; a short final
+        tile is padded with empty columns to ``tile_width``.  A
+        device-resident matrix is sliced where it lives, a short final tile
+        padded to ``tile_width``."""
+        if self._device_resident:
+            return self._device_tile(self.handler.fetch_tile(lb, ub), self.tile_width)
         if self.engine == "csort":
             from illico_tpu_torch.ops.csort_engine import compact_from_entries
 
@@ -443,14 +665,18 @@ class WilcoxonRunner:
         staged = []
         for i, a in enumerate(arrays):
             dtype = torch.from_numpy(a[:0]).dtype
-            buf = bufs.get(i)
+            buf = bufs.get((i, dtype))
             if buf is None or buf.numel() < a.size:
-                bufs[i] = buf = torch.empty(a.size, dtype=dtype, pin_memory=True)
+                bufs[(i, dtype)] = buf = torch.empty(a.size, dtype=dtype, pin_memory=True)
             host = buf[: a.size].view(a.shape)
             host.numpy()[...] = a
             staged.append(host.to(self.device, non_blocking=True))
         slot["event"].record()
         return staged
+
+    def _new_slots(self, n: int) -> list[dict]:
+        cuda = self.device.type == "cuda"
+        return [{"bufs": {}, "event": torch.cuda.Event() if cuda else None} for _ in range(n)]
 
     def _stage_tile(self, tile, slot):
         """Stage a dense tile, or the arrays of a :class:`CompactTile`
@@ -464,23 +690,95 @@ class WilcoxonRunner:
         grp = staged[2] if tile.grp is not None else None
         return CompactTile(staged[0], grp, staged[1], tile.t_cols)
 
+    def _pull_async(self, buf: torch.Tensor, pool: dict):
+        """Start the copy of a packed device buffer to the host; returns
+        ``(host tensor, done event)``.  On CUDA the target is a pinned
+        buffer from ``pool`` (size -> free buffers), which the caller gives
+        back with :meth:`_release` after consuming it."""
+        if buf.device.type != "cuda":
+            return buf, None
+        free = pool.setdefault(buf.numel(), [])
+        host = free.pop() if free else torch.empty(buf.numel(), dtype=torch.uint8, pin_memory=True)
+        host.copy_(buf, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _release(host: torch.Tensor, pool: dict) -> None:
+        if host.is_pinned():
+            pool.setdefault(host.numel(), []).append(host)
+
     # -- overflow fallback -------------------------------------------------------
     def _recompute_with_sort_engine(self, cols: np.ndarray, consume_stats) -> None:
         """Exact recomputation of selected columns via the sort engine, in
-        chunks of ``_FALLBACK_WIDTH`` columns."""
+        chunks of ``_FALLBACK_WIDTH`` columns, pipelined like the main loop:
+        prefetch threads gather the chunks (a short last one padded to the
+        chunk width), dispatches run ahead of the pulls within a bounded
+        window, and each chunk's packed statistics come back through one
+        non-blocking copy."""
         sort_fn = make_tile_fn(
             self.layout, ref_code=self.info.ref_code, is_log1p=self.is_log1p,
-            device=self.device,
+            device=self.device, pack=True,
         )
         fw = self._FALLBACK_WIDTH
-        for s in range(0, cols.size, fw):
-            chunk = cols[s : s + fw]
-            tile = self._host_tile(self.handler.fetch_columns(chunk))
-            out = sort_fn(torch.from_numpy(tile).to(self.device))
-            consume_stats(chunk, {k: v.cpu() for k, v in out.items()})
+        chunks = [cols[s : s + fw] for s in range(0, cols.size, fw)]
+
+        def fetch(chunk):
+            tile = self.handler.fetch_columns(chunk)
+            if self._device_resident:
+                return self._device_tile(tile, fw)
+            return self._host_tile(np.asarray(tile), fw)
+
+        n_prefetch = max(2, self.n_threads)
+        depth = max(2, self.n_threads)
+        slots = self._new_slots(n_prefetch + 1)
+        pool: dict = {}
+        pending: deque = deque()  # (chunk, host buffer, done event)
+
+        def pull_one():
+            chunk, host, done = pending.popleft()
+            if done is not None:
+                done.synchronize()
+            consume_stats(chunk, sort_fn.unpack(host.numpy()))
+            self._release(host, pool)
+
+        with ThreadPoolExecutor(max_workers=n_prefetch) as workers:
+            ahead = min(n_prefetch, len(chunks))
+            futures = {i: workers.submit(fetch, chunks[i]) for i in range(ahead)}
+            for i, chunk in enumerate(chunks):
+                tile = futures.pop(i).result()
+                if i + ahead < len(chunks):
+                    futures[i + ahead] = workers.submit(fetch, chunks[i + ahead])
+                if not self._device_resident:
+                    tile = self._stage([tile], slots[i % len(slots)])[0]
+                host, done = self._pull_async(sort_fn(tile), pool)
+                del tile
+                pending.append((chunk, host, done))
+                if len(pending) > depth:
+                    pull_one()
+            while pending:
+                pull_one()
 
     # -- main loop -----------------------------------------------------------------
-    def run(self, progress: bool = True) -> RunResult:
+    def run(self, progress: bool = True, profile_dir: str | None = None) -> RunResult:
+        """Execute the tile loop.  ``profile_dir`` wraps the run in
+        ``torch.profiler.profile`` (CPU activity, and CUDA activity on a
+        CUDA device) and writes a Chrome trace, ``trace.json``, there."""
+        if profile_dir is None:
+            return self._run(progress)
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            res = self._run(progress)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        return res
+
+    def _run(self, progress: bool = True) -> RunResult:
         info = self.info
         G, n_genes = info.n_groups, self.n_genes
         n_tests = G * n_genes
@@ -513,31 +811,46 @@ class WilcoxonRunner:
             nr, nt = n_total - counts[:, None], counts[:, None]
         else:
             nr, nt = np.full((G, 1), counts[info.ref_code]), counts[:, None]
+        # Groups whose fc-sum / R2 rows travel as separate per-column arrays
+        # (histogram engine only; -1 elsewhere).
+        statics = getattr(self.tile_fn, "_statics", {})
+        fc_split = int(statics.get("fc_split_code", -1))
+        u2_split = int(statics.get("u2_split_code", -1))
 
         def consume_stats(cols, out):
-            """Scatter one host output dict into the result arrays at the
-            given global column indices."""
+            """Scatter one unpacked host dict (numpy) into the result arrays
+            at the given global column indices."""
             w = len(cols)
             ov = out.get("overflow_cols")
             if ov is not None:
-                bad = np.flatnonzero(ov.numpy()[:w])
+                bad = np.flatnonzero(np.asarray(ov)[:w])
                 if bad.size:
                     overflow_cols.extend(np.asarray(cols)[bad].tolist())
             if is_ovr:
-                r_tgt = out["R2"].numpy()[:, :w] / 2.0
-                U[:, cols] = nr * nt + nt * (nt + 1.0) / 2.0 - r_tgt
-                tie[:, cols] = np.broadcast_to(out["tie_col"].numpy()[None, :w], (G, w))
+                r2 = np.asarray(out["R2"], dtype=np.float64)[:, :w]
+                r2_split = out.get("r2_split_col")
+                if r2_split is not None and u2_split >= 0:
+                    # In place is safe: the dict is private to this tile.
+                    r2[u2_split] = np.asarray(r2_split, np.float64)[:w]
+                U[:, cols] = nr * nt + nt * (nt + 1.0) / 2.0 - r2 / 2.0
+                tie[:, cols] = np.broadcast_to(np.asarray(out["tie_col"])[None, :w], (G, w))
             else:
-                u_tgt = out["U2"].numpy()[:, :w] / 2.0
+                u_tgt = np.asarray(out["U2"], dtype=np.float64)[:, :w] / 2.0
                 U[:, cols] = nr * nt - u_tgt
-                tie[:, cols] = out["tie_ref_col"].numpy()[None, :w] + out["tie_seg"].numpy()[:, :w]
+                tie[:, cols] = (
+                    np.asarray(out["tie_ref_col"])[None, :w]
+                    + np.asarray(out["tie_seg"], dtype=np.float64)[:, :w]
+                )
             # A NaN expression sum reads as 0.0, as in the reference, whose
-            # packed result wire carries fc sums as an integer mantissa and
-            # exponent and converts a NaN mantissa to 0.
-            fc_sums = out["fc_sums"].numpy()[:, :w]
-            fc[:, cols] = fold_change_from_summed_expr(
-                np.where(np.isnan(fc_sums), 0.0, fc_sums), info.counts, info.ref_code,
-            )
+            # wire carries fc sums as an integer mantissa and exponent and
+            # converts a NaN mantissa to 0; so does this package's wire, and
+            # this line says the same for a dict that never crossed it.
+            fc_sums = np.asarray(out["fc_sums"], dtype=np.float64)[:, :w]
+            fc_sums = np.where(np.isnan(fc_sums), 0.0, fc_sums)
+            split_col = out.get("fc_split_col")
+            if split_col is not None and fc_split >= 0:
+                fc_sums[fc_split] = np.asarray(split_col, np.float64)[:w]
+            fc[:, cols] = fold_change_from_summed_expr(fc_sums, info.counts, info.ref_code)
             pvals[:, cols] = pvalues_from_stats(
                 U[:, cols], tie[:, cols], nr, nt,
                 use_continuity=self.use_continuity,
@@ -545,61 +858,101 @@ class WilcoxonRunner:
                 alternative=self.alternative,
             )
 
-        clock = _StageClock(self.device)
-        cuda = self.device.type == "cuda"
-        n_prefetch = max(2, self.n_threads)
-        depth = max(2, self.n_threads)
-        # One pinned staging slot per tile that can be in flight between
-        # its fetch and its device copy.
-        slots = [
-            {"bufs": {}, "event": torch.cuda.Event() if cuda else None}
-            for _ in range(n_prefetch + 1)
-        ]
-        pending: deque = deque()  # (lb, ub, host dict, done event)
+        from illico_tpu_torch.native import consume_tile_native
 
-        def pull_one():
-            lb, ub, host_out, done = pending.popleft()
+        consume_path = {"native": 0, "numpy": 0}
+        find_spec, unpack = self.tile_fn.find_spec, self.tile_fn.unpack
+
+        def consume(lb, ub, buf: np.ndarray):
+            """One tile's packed host buffer -> its columns of ``results``:
+            the fused native pass (decode, statistics, p and fc in one C
+            loop straight into the result buffer) when the library is
+            there, numpy otherwise."""
+            w_cols = ub - lb
+            spec = find_spec(buf.size)
+            if spec is not None and "overflow_cols" in spec:
+                _, _, off, nbytes = spec["overflow_cols"]
+                bad = np.flatnonzero(buf[off : off + nbytes][:w_cols])
+                if consume_tile_native(
+                    buf, spec, counts, int(info.ref_code), w_cols,
+                    self.alternative, self.use_continuity, self.tie_correct,
+                    results, lb, fc_split_code=fc_split, u2_split_code=u2_split,
+                ):
+                    if bad.size:
+                        overflow_cols.extend((lb + bad).tolist())
+                    consume_path["native"] += 1
+                    return
+            consume_path["numpy"] += 1
+            consume_stats(np.arange(lb, ub), unpack(buf))
+
+        clock = _StageClock(self.device)
+        clock.add("precompile", getattr(self, "_precompile_seconds", 0.0))
+        self._precompile_seconds = 0.0
+        pool: dict = {}  # pinned result buffers, by size
+
+        def dispatch(x):
+            """Tile on the device -> (host buffer, done event), stages
+            marked on the stream."""
+            buf = self.tile_fn(x, clock.mark)
+            clock.mark("pack")
+            pulled = self._pull_async(buf, pool)
+            clock.mark("d2h")
+            return pulled
+
+        def pull(lb, ub, host, done):
             if done is not None:
                 done.synchronize()
             t0 = time.perf_counter()
-            consume_stats(np.arange(lb, ub), host_out)
+            consume(lb, ub, host.numpy())
             clock.add("tail", time.perf_counter() - t0)
+            self._release(host, pool)
             if pbar is not None:
                 pbar.update(G * (ub - lb))
 
         t_loop0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=n_prefetch) as pool:
-            ahead = min(n_prefetch, len(self.bounds))
-            futures = {i: pool.submit(self._fetch, *self.bounds[i]) for i in range(ahead)}
-            for i, (lb, ub) in enumerate(self.bounds):
-                t0 = time.perf_counter()
-                tile = futures.pop(i).result()
-                clock.add("fetch", time.perf_counter() - t0)
-                if i + ahead < len(self.bounds):
-                    futures[i + ahead] = pool.submit(self._fetch, *self.bounds[i + ahead])
+        if self._device_resident:
+            # The input is on the device and each tile's result is small:
+            # dispatch every tile up front (all asynchronous), then consume
+            # in order while the device drains its queue.
+            pending = []
+            for lb, ub in self.bounds:
                 clock.mark(None)
-                x = self._stage_tile(tile, slots[i % len(slots)])
-                clock.mark("h2d")
-                out = self.tile_fn(x, clock.mark) if self.engine == "hist" else self.tile_fn(x)
-                clock.mark("contract" if self.engine == "hist" else "kernel")
-                host_out = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
-                clock.mark("d2h")
-                done = None
-                if cuda:
-                    done = torch.cuda.Event()
-                    done.record()
-                del x, out
-                pending.append((lb, ub, host_out, done))
-                if len(pending) > depth:
-                    pull_one()
-            while pending:
-                pull_one()
+                pending.append((lb, ub, *dispatch(self._fetch(lb, ub))))
+            for item in pending:
+                pull(*item)
+        else:
+            n_prefetch = max(2, self.n_threads)
+            depth = max(2, self.n_threads)
+            # One pinned staging slot per tile that can be in flight between
+            # its fetch and its device copy.
+            slots = self._new_slots(n_prefetch + 1)
+            pending = deque()  # (lb, ub, host buffer, done event)
+            with ThreadPoolExecutor(max_workers=n_prefetch) as workers:
+                ahead = min(n_prefetch, len(self.bounds))
+                futures = {i: workers.submit(self._fetch, *self.bounds[i]) for i in range(ahead)}
+                for i, (lb, ub) in enumerate(self.bounds):
+                    t0 = time.perf_counter()
+                    tile = futures.pop(i).result()
+                    clock.add("fetch", time.perf_counter() - t0)
+                    if i + ahead < len(self.bounds):
+                        futures[i + ahead] = workers.submit(self._fetch, *self.bounds[i + ahead])
+                    clock.mark(None)
+                    x = self._stage_tile(tile, slots[i % len(slots)])
+                    clock.mark("h2d")
+                    pending.append((lb, ub, *dispatch(x)))
+                    del x, tile
+                    if len(pending) > depth:
+                        pull(*pending.popleft())
+                while pending:
+                    pull(*pending.popleft())
         stage_seconds = clock.finish()
         if pbar is not None:
             pbar.close()
         logger.trace(
-            "Tile loop: %.2fs over %d tiles; stages %s.",
-            time.perf_counter() - t_loop0, len(self.bounds), stage_seconds,
+            "Tile loop: %.2fs over %d tiles (consume path: %d native, %d "
+            "numpy); stages %s.",
+            time.perf_counter() - t_loop0, len(self.bounds),
+            consume_path["native"], consume_path["numpy"], stage_seconds,
         )
 
         # -- exact sort-engine fallback for histogram-overflow columns -------
@@ -622,6 +975,6 @@ class WilcoxonRunner:
             U[info.ref_code, :] = REF_SENTINEL_U
             fc[info.ref_code, :] = 1.0
         return RunResult(
-            stacked=results,
-            stage_seconds=stage_seconds, n_fallback_cols=n_fallback,
+            stacked=results, stage_seconds=stage_seconds,
+            n_fallback_cols=n_fallback, consume_path=consume_path,
         )

@@ -1,7 +1,7 @@
 """Compact (nonzero-only) sort engine: the sparse tier of the rank path.
 
-Port of ``illico_tpu.ops.csort_engine`` (XLA code there, plain torch here;
-no packed wire).  Single-cell matrices are mostly zeros, and the zero block
+Port of ``illico_tpu.ops.csort_engine`` (XLA code there, plain torch here).
+Single-cell matrices are mostly zeros, and the zero block
 never needs sorting: rank only the nonzeros and add the zero block in
 closed form.
 
@@ -43,11 +43,25 @@ from illico_tpu_torch.ops.rank_engine import (
     _to_layout_order,
 )
 
+from illico_tpu_torch.ops.wire import (
+    _WIRE_COUNT_ALIGN,
+    Abstract,
+    _narrow_map,
+    _pick_split_dtype,
+    assert_spec_size_unique,
+    build_pack_spec,
+    spec_lookup,
+    unpack_host_buffer,
+)
+
 __all__ = [
     "CompactTile",
     "compact_from_entries",
+    "csort_narrow_statics",
     "csort_stats_tile",
     "make_csort_tile_fn",
+    "make_rank_unpackers",
+    "rank_output_abstract",
 ]
 
 # Per-element integer payloads are bounded by 3*n_total + 2; a 32-row
@@ -197,6 +211,104 @@ def _colwise_segment_sum(q, indptr, *, exact_int: bool):
     return css_at[1:] - css_at[:-1]
 
 
+def csort_narrow_statics(counts: np.ndarray, ref_code: int) -> dict:
+    """Wire tiers for the packed rank-contract output, proven by group-size
+    bounds; equal to the reference package's.
+
+    Integer statistics (U2/R2, tie sums) pick the narrowest faithful
+    encoding: the int32 device cast below 2**31, split-word tiers (u40/f48)
+    below 2**48, the 8-byte word split below 2**63, f96 beyond.  fc sums are
+    arbitrary floats here, so they always ride the f96 triple.
+    """
+    c = np.asarray(counts, dtype=np.float64)
+    n = float(c.sum())
+
+    def pick(bound: float) -> str:
+        # The arrays stay float64 on the device except for the int32 cast.
+        d = _pick_split_dtype(bound)
+        return "int32" if d in ("uint16", "uint24", "int32") else d
+
+    if ref_code == -1:
+        u2_dtype = pick(2.0 * n * (c.max() if c.size else 0.0))
+        tie_dtype = "float64"  # no (G, T) tie array in OVR
+        tiecol_dtype = "f96" if n**3 >= 2.0**63 else "float64"
+    else:
+        others = np.delete(c, ref_code)
+        m_max = others.max() if others.size else 0.0
+        r = c[ref_code]
+        u2_dtype = pick(2.0 * r * m_max)
+        tie_dtype = pick((m_max**3 - m_max) + 3.0 * r * m_max * (r + m_max))
+        tiecol_dtype = "f96" if r**3 >= 2.0**63 else "float64"
+    return dict(u2_dtype=u2_dtype, tie_dtype=tie_dtype, tiecol_dtype=tiecol_dtype)
+
+
+def _narrow_for(t_cols: int, g_rows: int, narrow_statics: dict, ref_code: int) -> dict:
+    """Pack-narrowing map for a rank-contract tile, alignment-checked.
+
+    Split-word tiers (u40/f48) need element counts divisible by 4/2 to keep
+    later pack blocks aligned, and these tiles keep the caller's width,
+    which can be odd for small inputs.  Misaligned keys fall back to the
+    natural 8-byte word split, always valid since every split tier's bound
+    is below 2**63 by construction.
+    """
+    narrow = _narrow_map(dict(fc_dtype="f96", ref_code=ref_code, **narrow_statics))
+    narrow["fc_sums"] = 12  # non-integer float64: f96, always
+    bulk = g_rows * t_cols
+    sizes = {
+        "R2": bulk, "U2": bulk, "tie_seg": bulk, "fc_sums": bulk,
+        "tie_col": t_cols, "tie_ref_col": t_cols,
+    }
+    for k, wb in list(narrow.items()):
+        if sizes.get(k, 0) % _WIRE_COUNT_ALIGN.get(wb, 1):
+            del narrow[k]
+    return narrow
+
+
+def rank_output_abstract(t_cols: int, g_rows: int, ref_code: int, narrow_statics: dict) -> dict:
+    """Shapes and numpy dtypes of the packed rank-stats contract (R2/tie_col
+    OVR; U2/tie_seg/tie_ref_col OVO; fc_sums; overflow_cols), shared by the
+    compact and full sort engines.  "int32" is a real device cast; the
+    split and f96 tiers stay float64."""
+    f64, i32 = np.dtype(np.float64), np.dtype(np.int32)
+    bulk, col = (g_rows, t_cols), (t_cols,)
+    u2d = i32 if narrow_statics["u2_dtype"] == "int32" else f64
+    out = {
+        "overflow_cols": Abstract(col, np.dtype(np.bool_)),
+        "fc_sums": Abstract(bulk, f64),
+    }
+    if ref_code == -1:
+        out["R2"] = Abstract(bulk, u2d)
+        out["tie_col"] = Abstract(col, f64)
+    else:
+        out["U2"] = Abstract(bulk, u2d)
+        out["tie_seg"] = Abstract(bulk, i32 if narrow_statics["tie_dtype"] == "int32" else f64)
+        out["tie_ref_col"] = Abstract(col, f64)
+    return out
+
+
+def make_rank_unpackers(g_rows: int, ref_code: int, narrow_statics: dict):
+    """(spec_cache, _spec_for, find_spec, unpack) for a rank-contract
+    engine's packed wire, keyed by tile width."""
+    spec_cache: dict = {}
+    find_spec, match = spec_lookup(spec_cache)
+
+    def _spec_for(t_cols: int):
+        if t_cols not in spec_cache:
+            spec = build_pack_spec(
+                rank_output_abstract(t_cols, g_rows, ref_code, narrow_statics),
+                _narrow_for(t_cols, g_rows, narrow_statics, ref_code),
+            )
+            assert_spec_size_unique(spec_cache, t_cols, spec)
+            spec_cache[t_cols] = spec
+        return spec_cache[t_cols]
+
+    def unpack(buf) -> dict:
+        buf = np.asarray(buf)
+        return unpack_host_buffer(buf, match(buf))
+
+    return spec_cache, _spec_for, find_spec, unpack
+
+
 def csort_stats_tile(
     vals,
     grp,
@@ -206,6 +318,10 @@ def csort_stats_tile(
     ref_code: int,
     is_log1p: bool,
     n_total: int,
+    u2_dtype: str = "float64",
+    tie_dtype: str = "float64",
+    tiecol_dtype: str = "float64",
+    pack: bool = False,
 ):
     """Rank statistics of a compacted tile; zero block in closed form.
 
@@ -218,11 +334,25 @@ def csort_stats_tile(
     indptr : (G+1, T) int32 — per-column group boundaries.
     counts : (G,) integer — total cells per group (zeros included).
     n_total : total cells (zeros included).
+    u2_dtype / tie_dtype / tiecol_dtype : wire tiers from
+        :func:`csort_narrow_statics`, read only with ``pack=True``, which
+        returns the tile's packed uint8 buffer instead of the dict.
 
     Returns the :func:`rank_engine.rank_stats_tile` contract as float64
     tensors.  In OVO the reference group's own U2/tie_seg rows are zeroed
     (the consumer writes sentinels there).
     """
+    if pack:
+        from illico_tpu_torch.ops.rank_engine import _packed_rank_stats
+
+        out = csort_stats_tile(
+            vals, grp, indptr, counts, ref_code=ref_code, is_log1p=is_log1p, n_total=n_total
+        )
+        statics = dict(u2_dtype=u2_dtype, tie_dtype=tie_dtype, tiecol_dtype=tiecol_dtype)
+        return _packed_rank_stats(
+            out, vals.shape[1], ref_code=ref_code, u2_dtype=u2_dtype, tie_dtype=tie_dtype,
+            narrow=_narrow_for(vals.shape[1], indptr.shape[0] - 1, statics, ref_code),
+        )
     if vals.dtype not in (torch.float32, torch.float64):
         vals = vals.to(torch.float32)
     m_pad, t_cols = vals.shape
@@ -323,18 +453,30 @@ def csort_stats_tile(
     return out
 
 
-def make_csort_tile_fn(group_info, *, ref_code: int, is_log1p: bool, device):
+def make_csort_tile_fn(group_info, *, ref_code: int, is_log1p: bool, device,
+                       pack: bool = True):
     """Tile function over :class:`CompactTile` inputs, with the group
     counts staged once on ``device``.
 
     The tile's arrays may be numpy (copied to ``device`` here) or tensors
     already there.  ``grp`` may arrive as uint16 or as its int16 view (the
     runner stages the view: torch's uint16 has few device ops); either is
-    widened to int32 on the device.  Returns the plain dict of device
-    tensors.
+    widened to int32 on the device.  ``run(tile, mark=None)`` returns the
+    tile's packed uint8 buffer (``run.unpack`` and ``run.find_spec`` read it
+    on the host), or with ``pack=False`` the plain dict of device tensors;
+    ``mark("kernel")``, when given, is called between the statistics and
+    the pack.
     """
+    from illico_tpu_torch.ops.rank_engine import _packed_rank_stats
+
     counts = torch.from_numpy(np.asarray(group_info.counts, np.int64)).to(device)
     n_total = int(group_info.n_cells)
+    ref_code = int(ref_code)
+    g_rows = int(group_info.n_groups)
+    narrow_statics = csort_narrow_statics(group_info.counts, ref_code)
+    spec_cache, _spec_for, find_spec, unpack = make_rank_unpackers(
+        g_rows, ref_code, narrow_statics
+    )
 
     def _dev(a):
         if isinstance(a, np.ndarray):
@@ -343,13 +485,32 @@ def make_csort_tile_fn(group_info, *, ref_code: int, is_log1p: bool, device):
             a = torch.from_numpy(np.ascontiguousarray(a))
         return a.to(device)
 
-    def run(tile: CompactTile):
+    def run(tile: CompactTile, mark=None):
         grp = None
         if tile.grp is not None:
             grp = _dev(tile.grp).to(torch.int32) & 0xFFFF
-        return csort_stats_tile(
-            _dev(tile.vals), grp, _dev(tile.indptr), counts,
-            ref_code=int(ref_code), is_log1p=bool(is_log1p), n_total=n_total,
+        vals = _dev(tile.vals)
+        out = csort_stats_tile(
+            vals, grp, _dev(tile.indptr), counts,
+            ref_code=ref_code, is_log1p=bool(is_log1p), n_total=n_total,
+        )
+        if mark is not None:
+            mark("kernel")
+        if not pack:
+            return out
+        t_cols = vals.shape[1]
+        _spec_for(t_cols)
+        return _packed_rank_stats(
+            out, t_cols, ref_code=ref_code,
+            u2_dtype=narrow_statics["u2_dtype"], tie_dtype=narrow_statics["tie_dtype"],
+            narrow=_narrow_for(t_cols, g_rows, narrow_statics, ref_code),
         )
 
+    run._statics = dict(
+        ref_code=ref_code, is_log1p=bool(is_log1p), n_total=n_total,
+        pack=bool(pack), **narrow_statics,
+    )
+    run._spec_cache = spec_cache
+    run.unpack = unpack
+    run.find_spec = find_spec
     return run

@@ -228,15 +228,50 @@ def rank_stats_tile(
     return out
 
 
+def _packed_rank_stats(out: dict, t_cols: int, *, ref_code: int, u2_dtype: str,
+                       tie_dtype: str, narrow: dict):
+    """The single-buffer packed wire of a rank-contract dict (this engine's
+    and the compact sort engine's).
+
+    OVO reference self-rows are zeroed (the consumer writes sentinels
+    there), which is what makes the narrow tiers' bounds, computed over the
+    other groups, sound.  Both engines are exact for every value, so no
+    column ever overflows; the all-False ``overflow_cols`` column is carried
+    because the native consumer keys on its presence.
+    """
+    from illico_tpu_torch.ops.wire import pack_device_outputs, to_wire_dtype
+
+    out = dict(out)
+    u2_dev = "int32" if u2_dtype == "int32" else "float64"
+    if ref_code != -1:
+        tie_dev = "int32" if tie_dtype == "int32" else "float64"
+        for key, dev in (("U2", u2_dev), ("tie_seg", tie_dev)):
+            v = out[key].clone()
+            v[ref_code] = 0.0
+            out[key] = to_wire_dtype(v, dev)
+    else:
+        out["R2"] = to_wire_dtype(out["R2"], u2_dev)
+    any_v = next(iter(out.values()))
+    out["overflow_cols"] = torch.zeros(t_cols, dtype=torch.bool, device=any_v.device)
+    return pack_device_outputs(out, narrow)[0]
+
+
 def make_tile_fn(
     layout: PaddedLayout,
     *,
     ref_code: int,
     is_log1p: bool,
     device: torch.device,
+    pack: bool = False,
 ):
-    """Tile function with the layout staged once on ``device``; returns
-    the plain dict of device tensors."""
+    """Tile function with the layout staged once on ``device``.
+
+    ``run(x, mark=None)`` returns the plain dict of device tensors, or with
+    ``pack=True`` the tile's packed uint8 buffer (``run.unpack`` and
+    ``run.find_spec`` read it on the host), with the same bound-proven
+    narrow tiers as the compact sort engine.  ``mark("kernel")``, when
+    given, is called between the statistics and the pack.
+    """
     layout_args = tuple(
         torch.from_numpy(np.ascontiguousarray(a)).to(device)
         for a in (
@@ -244,9 +279,41 @@ def make_tile_fn(
             layout.block_starts, layout.block_ends,
         )
     )
-    def run(x_raw):
-        return rank_stats_tile(
-            x_raw, *layout_args, ref_code=int(ref_code), is_log1p=bool(is_log1p)
+    ref_code = int(ref_code)
+    if pack:
+        # Narrow tiers and spec/unpack machinery shared with the compact
+        # engine (identical output contract; counts from the layout).
+        from illico_tpu_torch.ops.csort_engine import (
+            _narrow_for,
+            csort_narrow_statics,
+            make_rank_unpackers,
+        )
+        from illico_tpu_torch.ops.hist_engine import real_rows_per_group
+
+        narrow_statics = csort_narrow_statics(real_rows_per_group(layout), ref_code)
+        spec_cache, _spec_for, find_spec, unpack = make_rank_unpackers(
+            layout.n_groups, ref_code, narrow_statics
         )
 
+    def run(x_raw, mark=None):
+        out = rank_stats_tile(
+            x_raw, *layout_args, ref_code=ref_code, is_log1p=bool(is_log1p)
+        )
+        if mark is not None:
+            mark("kernel")
+        if not pack:
+            return out
+        t_cols = x_raw.shape[1]
+        _spec_for(t_cols)
+        return _packed_rank_stats(
+            out, t_cols, ref_code=ref_code,
+            u2_dtype=narrow_statics["u2_dtype"], tie_dtype=narrow_statics["tie_dtype"],
+            narrow=_narrow_for(t_cols, layout.n_groups, narrow_statics, ref_code),
+        )
+
+    run._statics = dict(ref_code=ref_code, is_log1p=bool(is_log1p))
+    run._spec_cache = spec_cache if pack else None
+    if pack:
+        run.unpack = unpack
+        run.find_spec = find_spec
     return run

@@ -1,10 +1,11 @@
 """Exact statistical tail: z-scores, p-values, fold changes (host, float64).
 
-Port of ``illico_tpu.stats``, numpy/scipy path only.  The device computes
-the exact rank sums, tie sums and group expression sums; this module turns
-those (n_groups, n_genes) summaries into p-values and fold changes in IEEE
-double precision with scipy's erfc, so the 1e-12 contract against
-``scipy.stats.mannwhitneyu`` does not depend on device arithmetic.
+Port of ``illico_tpu.stats``.  The device computes the exact rank sums, tie
+sums and group expression sums; this module turns those (n_groups, n_genes)
+summaries into p-values and fold changes in IEEE double precision, with
+the native C++ tail (libm erfc) when it is available and numpy with scipy's
+erfc otherwise, so the 1e-12 contract against ``scipy.stats.mannwhitneyu``
+does not depend on device arithmetic.
 
 Semantics: tie correction, the degenerate guard ``tie_corr <= 1e-9 -> p = 1``,
 two-sided folding ``U = min(U, n_ref*n_tgt - U)``, continuity corrections;
@@ -21,6 +22,23 @@ __all__ = ["pvalues_from_stats", "fold_change_from_summed_expr"]
 _SQRT2 = np.sqrt(2.0)
 
 
+def _per_group_ok(arr: np.ndarray, shape: tuple) -> bool:
+    """True when ``arr`` broadcasts to ``shape`` as a per-ROW constant.
+
+    The native tail takes one sample size per group (row).  A 1-D
+    ``(n_groups,)`` array does not qualify: numpy broadcasting aligns it with
+    the trailing (column) axis, so the numpy path would scale per column and
+    the two paths would disagree.
+    """
+    if arr.ndim == 0:
+        return True
+    if arr.ndim == 1:
+        return arr.size == 1
+    if arr.ndim == 2:
+        return arr.shape[1] == 1 and arr.shape[0] in (1, shape[0])
+    return False
+
+
 def pvalues_from_stats(
     U: np.ndarray,
     tie_sum: np.ndarray,
@@ -29,6 +47,7 @@ def pvalues_from_stats(
     use_continuity: bool = True,
     tie_correct: bool = True,
     alternative: str = "two-sided",
+    prefer_native: bool = True,
 ) -> np.ndarray:
     """Vectorized asymptotic Mann-Whitney p-values.
 
@@ -42,6 +61,7 @@ def pvalues_from_stats(
     use_continuity : apply the +-0.5 continuity correction.
     tie_correct : apply the tie correction to sigma.
     alternative : 'two-sided' | 'greater' | 'less' — hypothesis on ref vs tgt.
+    prefer_native : use the C++ tail when it is available.
 
     Returns
     -------
@@ -54,6 +74,20 @@ def pvalues_from_stats(
     n_ref = np.asarray(n_ref, dtype=np.float64)
     n_tgt = np.asarray(n_tgt, dtype=np.float64)
     tie_sum = np.asarray(tie_sum, dtype=np.float64)
+
+    # Fast path: the fused C++ tail (same formula, libm erfc) when the
+    # sample sizes are per-group scalars of a 2-d (n_groups, n_cols) batch.
+    if (
+        prefer_native and U.ndim == 2
+        and _per_group_ok(n_ref, U.shape) and _per_group_ok(n_tgt, U.shape)
+    ):
+        from illico_tpu_torch.native import pvalue_tail_native
+
+        res = pvalue_tail_native(
+            U, tie_sum, n_ref, n_tgt, use_continuity, tie_correct, alternative
+        )
+        if res is not None:
+            return res
     if not tie_correct:
         tie_sum = np.zeros_like(tie_sum)
 

@@ -1,10 +1,12 @@
 """Input-format dispatch: data handlers and their registry.
 
-Port of ``illico_tpu.utils.registry`` without the device-resident handler:
-every handler produces *dense gene tiles* ``(n_cells, tile_width)`` in
-original row order, and sparse-aware handlers also stream a window's
-nonzero entries for the compact sort engine.  Registered here: ``np.ndarray``
-and scipy CSR and CSC (matrix and array classes); :func:`ensure_backed_handlers`
+Port of ``illico_tpu.utils.registry``: every handler produces *dense gene
+tiles* ``(n_cells, tile_width)`` in original row order, and sparse-aware
+handlers also stream a window's nonzero entries for the compact sort engine.
+Registered here: ``np.ndarray``, scipy CSR and CSC (matrix and array
+classes) and ``torch.Tensor`` (a CUDA tensor is device-resident input, its
+tiles column slices on the device; a CPU tensor is host input, read through
+its zero-copy numpy view); :func:`ensure_backed_handlers`
 adds ``h5py.Dataset`` (backed dense, when ``h5py`` imports), this package's
 :class:`illico_tpu_torch.io.h5ad.BackedCSC`, and anndata's backed CSC (when
 ``anndata`` imports).  Backed CSR, like any other type, raises ``KeyError``
@@ -16,10 +18,12 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 
 import numpy as np
+import torch
 from scipy import sparse as sp
 
 __all__ = [
     "DataHandler",
+    "DeviceDenseDataHandler",
     "data_handler_registry",
     "DataHandlerRegistry",
     "ensure_backed_handlers",
@@ -133,6 +137,39 @@ class DenseDataHandler(DataHandler):
 
     def footprint(self):
         return self.data.nbytes
+
+
+class DeviceDenseDataHandler(DataHandler):
+    """Dense matrix that already lives on a torch device: tiles are column
+    slices there, with no host work and no host-to-device copy in the tile
+    loop."""
+
+    is_device = True
+
+    @property
+    def dtype(self):
+        return torch.empty(0, dtype=self.data.dtype).numpy().dtype
+
+    def fetch_tile(self, lb, ub):
+        return self.data[:, lb:ub]
+
+    def fetch_columns(self, idx):
+        idx = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=self.data.device)
+        return self.data.index_select(1, idx)
+
+    def footprint(self):
+        return self.data.numel() * self.data.element_size()
+
+
+@data_handler_registry.register(torch.Tensor)
+def _tensor_handler(x: torch.Tensor) -> DataHandler:
+    """A CUDA tensor is device-resident; a CPU tensor is host input and
+    takes the dense handler on its numpy view (no copy)."""
+    if x.dim() != 2:
+        raise ValueError(f"Expected a 2-d (cells, genes) tensor; got shape {tuple(x.shape)}.")
+    if x.is_cuda:
+        return DeviceDenseDataHandler(x)
+    return DenseDataHandler(x.detach().numpy())
 
 
 class _SparseDataHandler(DataHandler):

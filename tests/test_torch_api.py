@@ -4,10 +4,12 @@ For dense, CSR and CSC inputs at the conftest size (10k cells x 15 genes x
 5 groups), ``illico_tpu_torch.asymptotic_wilcoxon(..., device="cpu")`` gives
 the same DataFrame as ``illico_tpu.asymptotic_wilcoxon`` and as the scipy
 oracle of ``tests/test_asymptotic_wilcoxon.py``: U exact, p within rtol
-1e-12, fold change within rtol 1e-6.  The port's p-values come from numpy
-and the reference's from its C++ tail, hence the p tolerance between them.
+1e-12, fold change within rtol 1e-6.  Both packages run on their packed
+result wire and their own build of the native C++ tail; every tile of the
+port must report the native consume path.
 """
 
+import os
 import subprocess
 import sys
 
@@ -45,6 +47,8 @@ def _check_scipy(got, adata, reference, use_continuity=True, alternative="two-si
 
 def _both(adata, **kw):
     got = illico_tpu_torch.asymptotic_wilcoxon(adata, device="cpu", progress=False, **kw)
+    path = got.attrs["consume_path"]
+    assert path["numpy"] == 0 and path["native"] >= 1, path
     want = illico_tpu.asymptotic_wilcoxon(adata, progress=False, **kw)
     return got, want
 
@@ -184,9 +188,20 @@ def _nan_input():
     return X, groups
 
 
+@pytest.fixture(params=["native", "numpy"])
+def consume_path(request, monkeypatch):
+    """Run the port on its native tail, then with the library hidden."""
+    import illico_tpu_torch.native as native
+
+    assert native.native_available()
+    if request.param == "numpy":
+        monkeypatch.setattr(native, "_LIB", None)
+    return request.param
+
+
 @pytest.mark.parametrize("engine", ["sort", "csort", "auto"])
 @pytest.mark.parametrize("test", ["ovo", "ovr"])
-def test_nan_input_matches_reference(engine, test):
+def test_nan_input_matches_reference(engine, test, consume_path):
     """A NaN makes the fold-change sums of its group, and of every group
     after it in code order, NaN.  The reference reads a NaN sum as 0.0
     (its result wire's NaN-to-integer conversion), so fold changes against
@@ -197,6 +212,8 @@ def test_nan_input_matches_reference(engine, test):
     got = illico_tpu_torch.asymptotic_wilcoxon_arrays(X, groups, device="cpu", **kw)
     want = illico_tpu.asymptotic_wilcoxon_arrays(X, groups, **kw)
     assert got.attrs["engine"] == (engine if engine != "auto" else "csort")
+    assert got.attrs["consume_path"][consume_path] == 1
+    assert got.attrs["consume_path"][{"native": "numpy", "numpy": "native"}[consume_path]] == 0
     _check_frames(got, want)
     for col in ("p_value", "statistic", "fold_change"):
         np.testing.assert_array_equal(np.isnan(got[col]), np.isnan(want[col]), err_msg=col)
@@ -206,6 +223,89 @@ def test_nan_input_matches_reference(engine, test):
         assert np.isinf(fc0.drop("ctl")).all()
     else:
         assert (fc0[["c", "ctl"]] == 0.0).all()
+
+
+def _ksplit_input(seed, **kw):
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "ops"))
+    from test_ksplit_wire import _ksplit_problem
+
+    x, info, _ = _ksplit_problem(seed=seed, **kw)
+    return x, info, np.array([f"g{i:03d}" for i in info.encoded_groups])
+
+
+def _runners(x, labels, engine, reference="g000"):
+    from illico_tpu.models.wilcoxon import WilcoxonRunner as JaxRunner
+    from illico_tpu.utils.groups import encode_and_count_groups as jax_encode
+    from illico_tpu.utils.registry import data_handler_registry as jax_registry
+    from illico_tpu_torch.models.wilcoxon import WilcoxonRunner
+    from illico_tpu_torch.utils.groups import encode_and_count_groups
+    from illico_tpu_torch.utils.registry import data_handler_registry
+
+    _, jinfo = jax_encode(labels, reference)
+    _, info = encode_and_count_groups(labels, reference)
+    want = JaxRunner(jax_registry.get(x), jinfo, is_log1p=False, engine=engine)
+    got = WilcoxonRunner(data_handler_registry.get(x), info, is_log1p=False,
+                         engine=engine, device=torch.device("cpu"))
+    return got, want
+
+
+def test_ksplit_public_api_end_to_end_with_fallback(consume_path):
+    """The nnz-split wire through the public API, one column overflowing its
+    exception slots into the sort fallback
+    (tests/ops/test_ksplit_wire.py::test_ksplit_public_api_end_to_end_with_fallback)."""
+    kw = dict(reference="g000", engine="hist", progress=False)
+    for density, n_fallback in ((0.12, 0), (0.25, 1)):  # the reference's input, then a denser one
+        x, info, labels = _ksplit_input(13, t=40, density=density)
+        for g in range(1, 28):
+            x[np.flatnonzero(info.encoded_groups == g), 5] = 2.0
+        got = illico_tpu_torch.asymptotic_wilcoxon_arrays(x, labels, device="cpu", **kw)
+        want = illico_tpu.asymptotic_wilcoxon_arrays(x, labels, **kw)
+        assert got.attrs["n_fallback_cols"] == n_fallback
+        assert got.attrs["consume_path"][consume_path] == 1
+        _check_frames(got, want)
+    by_sort = illico_tpu_torch.asymptotic_wilcoxon_arrays(
+        x, labels, device="cpu", reference="g000", engine="sort", progress=False)
+    np.testing.assert_array_equal(got.statistic.values, by_sort.statistic.values)
+    np.testing.assert_allclose(got.p_value.values, by_sort.p_value.values, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(got.fold_change.values, by_sort.fold_change.values, rtol=1e-12)
+    runner, _ = _runners(x, labels, "hist")
+    assert runner.tile_fn._statics["nnz_split"] is True
+
+
+def test_fc_u8_hint_equals_reference():
+    """The inputs of
+    tests/ops/test_ksplit_wire.py::test_ksplit_runner_engages_fc_u8_from_sampling:
+    the sampled column statistics, the hint and the wire statics are the
+    reference's."""
+    x, _, labels = _ksplit_input(21)
+    x2 = x * 40.0
+    x2[x2 > 500] = 500.0
+    for data, engaged in ((x, True), (np.ascontiguousarray(x2), False)):
+        got, want = _runners(data, labels, "hist")
+        assert got._fc_u8_hint() == want._fc_u8_hint() == engaged
+        for a, b in zip(got._sampled_colstats, want._sampled_colstats):
+            np.testing.assert_array_equal(a, b)
+        assert got._nnz_split_hint() is True
+        ref_statics = {k: v for k, v in want.tile_fn._statics.items()
+                       if k not in ("n_groups", "interpret")}
+        assert got.tile_fn._statics == ref_statics
+
+
+def test_nnz_split_hint_keeps_the_wire_off_dense_screens():
+    """A large control group and 30% nonzeros: nearly every column would
+    send more U2 residuals past uint16 than it has exception slots, so the
+    sampled estimate keeps the nnz-split wire off; the result is the
+    reference's either way."""
+    x, info, labels = _ksplit_input(5, n_ref=30000, g_other=40, n_per=200, t=30, density=0.3)
+    runner, ref_runner = _runners(x, labels, "hist")
+    assert ref_runner.tile_fn._statics["nnz_split"] is True
+    assert runner._nnz_split_hint() is False
+    assert runner.tile_fn._statics["nnz_split"] is False
+    kw = dict(reference="g000", engine="hist", progress=False)
+    got = illico_tpu_torch.asymptotic_wilcoxon_arrays(x, labels, device="cpu", **kw)
+    want = illico_tpu.asymptotic_wilcoxon_arrays(x, labels, **kw)
+    assert got.attrs["n_fallback_cols"] == 0
+    _check_frames(got, want)
 
 
 def test_arrays_api_matches_reference():
@@ -256,7 +356,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, illico_tpu_torch, illico_tpu_torch.models.wilcoxon, "
         "illico_tpu_torch.ops.hist_engine, illico_tpu_torch.utils.cuda_build, "
-        "illico_tpu_torch.ops.csort_engine, illico_tpu_torch.io.h5ad; "
+        "illico_tpu_torch.ops.csort_engine, illico_tpu_torch.io.h5ad, "
+        "illico_tpu_torch.ops.wire, illico_tpu_torch.native, illico_tpu_torch.stats, "
+        "illico_tpu_torch.utils.registry; "
+        "assert illico_tpu_torch.native.native_available(); "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'illico_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -186,7 +186,8 @@ def test_csort_matches_port_sort_engine(kind, ref):
     x[:, 2:4] = 0.0  # +inf and NaN rank differently in the two engines
     tile, info = _compact(x, labels, ref, tcs)
     run = tcs.make_csort_tile_fn(
-        info, ref_code=info.ref_code, is_log1p=False, device=torch.device("cpu")
+        info, ref_code=info.ref_code, is_log1p=False, device=torch.device("cpu"),
+        pack=False,
     )
     got = {k: v.numpy() for k, v in run(tile).items()}
     layout = tre.build_padded_layout(info.perm, info.indptr)
@@ -210,7 +211,7 @@ def test_tile_fn_widens_uint16_groups():
     tile, info = _compact(x, labels, "1", tcs)
     assert tile.grp.dtype == np.uint16
     run = tcs.make_csort_tile_fn(info, ref_code=info.ref_code, is_log1p=False,
-                                 device=torch.device("cpu"))
+                                 device=torch.device("cpu"), pack=False)
     got = run(tile)
     want = tcs.csort_stats_tile(
         torch.from_numpy(tile.vals), torch.from_numpy(tile.grp.astype(np.int32)),
