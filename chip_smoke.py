@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2    # build and kernel check only
     python3 chip_smoke.py --phases 1,8    # build, then the wire on the card
     python3 chip_smoke.py --phases 1,5,9  # counts at full width, host and device input
+    python3 chip_smoke.py --phases 1,5,9,10  # the same, then sharded and multi-process
 
 Phases, each printing its own lines:
 
@@ -55,11 +56,26 @@ Phases, each printing its own lines:
    tensor, OVO and OVR through ``engine="auto"``: the frame equals the
    host-input frame bit for bit, ``h2d`` is 0 and ``fetch`` ~0, every tile
    takes the native tail, scipy spot checks; then one profiled call
-   (``profile_dir``) whose trace gives the card's busy share of the call.
+   (``profile_dir``) whose trace gives the card's busy share of the call;
+10. multi-device and multi-process runs on phase 5's matrix and frames, with
+    shards on distinct cards when there are at least two and otherwise as
+    logical shards on ``cuda:0``: (a) the histogram kernel on the shard-local
+    inputs of a 2-way and a 3-way cell split of phase 2's population (a
+    group absent from a shard, a 1-cell group), each shard on a non-default
+    stream, against its plain version bit for bit, and the sum over shards
+    against the unsharded histogram; (b) the public API with ``devices=2``
+    (gene mesh) and (c) ``devices=(2, 1)`` (cell mesh, host input and a CUDA
+    tensor), OVO and OVR: frames equal phase 5's bit for bit, every shard
+    tile on the native tail, stage seconds per device, the lead device's
+    peak memory and the histogram add timed alone; (d)
+    ``simulate_multihost`` with 2 hosts x 1 device at full width, and two
+    real processes joined by gloo at phase 4's size, both on the card, their
+    frames identical and equal to the single-process frame.
 
 Backed h5ad inputs are not driven here: the chip machine has no ``h5py``.
 
-Any failure raises and exits non-zero.  The last three lines are the
+Any failure raises and exits non-zero; the two worker processes of phase
+10 are started here, with a time limit of their own.  The last three lines are the
 kernels' JSON record, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -345,8 +361,9 @@ def full_counts(ctx):
     return ctx["x"], ctx["labels"], ctx["pairs"]
 
 
-def full_call(tag, X, labels, reference, **kw):
-    """One timed public-API call at full width; returns (frame, record)."""
+def full_call(tag, X, labels, reference, shard_tiles=1, **kw):
+    """One timed public-API call at full width; returns (frame, record).
+    ``shard_tiles``: the gene shards a tile splits into (``devices=``)."""
     import torch
 
     from illico_tpu_torch import asymptotic_wilcoxon_arrays
@@ -364,12 +381,14 @@ def full_call(tag, X, labels, reference, **kw):
         "stage_s": df.attrs["stage_seconds"],
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if "devices" in kw:
+        rec["stage_s_by_device"] = df.attrs["stage_seconds_by_device"]
     print(f"{tag}: {json.dumps(rec)}", flush=True)
     if df.attrs["engine"] != "hist" or not np.isfinite(df.p_value.values).all():
         raise AssertionError(f"{tag}: engine {df.attrs['engine']} or non-finite p")
     if df.shape != (n_groups * n_genes, 3):
         raise AssertionError(f"{tag}: result shape {df.shape}")
-    n_tiles = -(-n_genes // 2048)
+    n_tiles = -(-n_genes // 2048) * shard_tiles
     if df.attrs["consume_path"] != {"native": n_tiles, "numpy": 0}:
         raise AssertionError(f"{tag}: consume path {df.attrs['consume_path']}, "
                              f"expected {n_tiles} native tiles")
@@ -808,10 +827,253 @@ def phase_device_input(stats, ctx):
                                  device_busy_s=busy_us / 1e6)
 
 
+MEDIUM_SHAPE = (20_000, 300, 50)  # cells, genes, groups of phase 10's two processes
+
+
+def medium_problem():
+    """Phase 10d's matrix and labels; every process makes the same."""
+    rng = np.random.default_rng(SEED + 7)
+    n_cells, n_genes, n_groups = MEDIUM_SHAPE
+    counts = poisson_counts(rng, n_cells, n_genes, density=0.3)
+    labels = np.char.add("g", rng.integers(0, n_groups, n_cells).astype(str))
+    return counts, labels
+
+
+def array_adata(x, labels):
+    import pandas as pd
+
+    from illico_tpu_torch.io.h5ad import AnnDataLite
+
+    return AnnDataLite(x, pd.DataFrame({"group": labels}),
+                       pd.DataFrame(index=[f"gene_{i}" for i in range(x.shape[1])]))
+
+
+def multihost_worker(address, rank, device, out) -> int:
+    """One of phase 10d's two processes: its gene window of the medium
+    problem on ``device``, the gathered frame written to ``out``."""
+    from illico_tpu_torch import asymptotic_wilcoxon_multihost
+    from illico_tpu_torch.parallel.multihost import initialize_distributed
+
+    t0 = time.perf_counter()
+    if initialize_distributed(address, 2, rank) != (2, rank):
+        raise AssertionError("the process group did not come up as (2, rank)")
+    joined = time.perf_counter() - t0
+    x, labels = medium_problem()
+    frames, walls = {}, {}
+    for tag, reference in (("OVO", "g0"), ("OVR", None)):
+        t0 = time.perf_counter()
+        df = asymptotic_wilcoxon_multihost(
+            array_adata(x, labels), is_log1p=False, group_keys="group",
+            reference=reference, device=device)
+        walls[tag] = time.perf_counter() - t0
+        frames[tag] = df.values
+    np.savez(out, joined_s=joined, OVO_s=walls["OVO"], OVR_s=walls["OVR"], **frames)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sharded(stats, ctx, worker_timeout=300):
+    import socket
+
+    import torch
+
+    from illico_tpu_torch import asymptotic_wilcoxon_arrays
+    from illico_tpu_torch.ops import hist_engine as he
+    from illico_tpu_torch.parallel import mesh as pmesh
+    from illico_tpu_torch.parallel.cells import build_cell_shard_plans
+    from illico_tpu_torch.parallel.multihost import simulate_multihost
+
+    os.environ["ILLICO_TPU_HOST_BUDGET"] = str(16 << 30)
+    if DEV == "cuda":
+        n_cards = torch.cuda.device_count()
+        cards = [torch.device("cuda", i) for i in range(max(n_cards, 1))]
+    else:  # CPU rehearsal
+        n_cards, cards = 0, [torch.device(DEV)]
+    distinct = n_cards >= 2
+    # With one card every shard is a logical shard on cuda:0 (device=).
+    api_kw = {} if distinct else {"device": str(cards[0])}
+    pool = [cards[i % len(cards)] for i in range(3)]
+    # Warm-up launches per call: the gene mesh warms each distinct device
+    # once, the cell mesh its one gene shard, which launches per cell shard.
+    warm_launches = {2: 2 if distinct else 1, (2, 1): 2}
+    print(f"[10] {n_cards} card(s): shards on "
+          f"{'distinct cards' if distinct else f'{cards[0]} as logical shards'} "
+          f"({[str(d) for d in pool[:2]]})", flush=True)
+
+    # -- 10a: the kernel on shard-local inputs ------------------------------
+    rng = np.random.default_rng(SEED)
+    n_cells, t_cols, n_groups = 60_000, 1000, 2000
+    if DEV != "cuda":
+        n_cells, t_cols, n_groups = 3000, 40, 50
+    labels = rng.integers(1, n_groups, n_cells)
+    lone = int(rng.integers(n_cells))
+    labels[lone] = 0  # a 1-cell group: absent from every shard but one
+    info, layout = layout_for(labels)
+    counts = poisson_counts(rng, n_cells, t_cols)
+    arrs = he.prepare_hist_inputs(layout, 128, False, cards[0])
+    whole = he.hist_pass(torch.from_numpy(counts).to(cards[0]), arrs["perm"], arrs["indptr"],
+                         arrs["order"], arrs["table"], is_log1p=False)
+    launches0 = he.hist_pass.launches
+    worst = 0.0
+    for n_shards in (2, 3):
+        plan = build_cell_shard_plans(info, n_shards)
+        empty = sum(int((np.diff(p) == 0).sum()) for p in plan.indptr)
+        ones = sum(int((np.diff(p) == 1).sum()) for p in plan.indptr)
+        if empty < n_shards - 1 or ones < 1:
+            raise AssertionError(f"[10a] {n_shards} shards: {empty} empty and {ones} 1-cell "
+                                 f"segments, expected a group absent from a shard and a "
+                                 f"1-cell group")
+        total = torch.zeros_like(whole)
+        for s, (lo, hi) in enumerate(plan.row_bounds):
+            dev = pool[s]
+            stream = pmesh._new_stream(dev)
+            args = [torch.from_numpy(a).to(dev)
+                    for a in (plan.perm[s], plan.indptr[s], plan.order[s])]
+            args.append(arrs["table"].to(dev))
+            xs = torch.from_numpy(counts[lo:hi]).to(dev)
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(dev))
+            with pmesh.on_device(dev, stream):
+                got = he.hist_pass(xs, *args, is_log1p=False)
+                want = he.hist_pass_plain(xs, *args, is_log1p=False)
+            if stream is not None:
+                stream.synchronize()
+            worst = max(worst, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"[10a] shard {s} of {n_shards}: kernel != plain")
+            absent = torch.from_numpy(np.flatnonzero(np.diff(plan.indptr[s]) == 0)).to(dev)
+            if bool(got[absent].any()):
+                raise AssertionError(f"[10a] shard {s} of {n_shards}: an absent group's "
+                                     f"histogram is not zero")
+            total += got.to(cards[0])
+        if not torch.equal(total, whole):
+            raise AssertionError(f"[10a] {n_shards} shards: summed histogram != unsharded")
+        print(f"[10a] {n_shards} cell shards ({empty} empty segments, {ones} of one cell): "
+              f"kernel == plain on every shard's own stream; sum == unsharded", flush=True)
+    moved = he.hist_pass.launches - launches0
+    if DEV == "cuda" and moved != 5:
+        raise AssertionError(f"[10a] launch counter moved by {moved}, expected 5")
+    del whole, total, got, want, xs
+
+    # -- 10b, 10c: the public API under a gene mesh and a cell mesh ---------
+    x, labels, pairs = full_counts(ctx)
+    n_cells, n_genes, n_groups = FULL_SHAPE
+    for reference in ("non-targeting", None):
+        tag = "OVO" if reference else "OVR"
+        if tag not in ctx["frames"]:
+            ctx["frames"][tag], _ = full_call(f"[10] {tag} host input", x, labels, reference,
+                                              **api_kw)
+    n_tiles = -(-n_genes // 2048)
+    runs = {}
+    he.hist_pass.launches = 0
+    expected = 0
+    for name, devices, shard_tiles, kinds in (
+        ("10b gene mesh devices=2", 2, 2, ("host",)),
+        ("10c cell mesh devices=(2, 1)", (2, 1), 1, ("host", "CUDA tensor")),
+    ):
+        for kind in kinds:
+            # The matrix is on the card only while it is the input, so the
+            # host-input peaks do not count it.
+            X = x if kind == "host" else torch.from_numpy(x).to(cards[0])
+            for reference in ("non-targeting", None):
+                tag = "OVO" if reference else "OVR"
+                df, rec = full_call(f"[{name}] {tag} {kind} input", X, labels, reference,
+                                    shard_tiles=shard_tiles, devices=devices, **api_kw)
+                np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
+                runs[f"{name} {tag} {kind}"] = rec
+                expected += warm_launches[devices] + 2 * n_tiles  # 2 shards per tile
+            del X
+    launches = he.hist_pass.launches
+    if DEV == "cuda" and launches != expected:
+        raise AssertionError(f"[10] sharded paths launched the hist kernel {launches} times, "
+                             f"expected {expected}")
+    print(f"[10b/10c] gene-mesh and cell-mesh frames equal phase 5's bit for bit, host and "
+          f"CUDA-tensor input; every shard tile took the native tail; {launches} hist kernel "
+          f"launches (per call: {warm_launches[2]} warm-up launch(es) under the gene mesh, 2 "
+          f"under the cell mesh, and one per tile and shard)", flush=True)
+    # The cell mesh's histogram sum alone: one shard's (G, V, T) float32
+    # histogram added into the lead's (copied first when on another card).
+    a = torch.zeros((n_groups, 128, min(n_genes, 2048)), dtype=torch.float32, device=cards[0])
+    b = torch.ones_like(a, device=pool[1])
+    add_ms = cuda_ms(lambda: a.add_(b.to(cards[0], non_blocking=True)), reps=5)
+    print(f"[10c] histogram sum alone ({a.numel() * 4 / 1e9:.2f} GB from {pool[1]} into "
+          f"{cards[0]}): {add_ms:.3f} ms", flush=True)
+    del a, b
+
+    # -- 10d: simulated hosts at full width, then two real processes --------
+    adata = array_adata(x, labels)
+    for reference in ("non-targeting", None):
+        tag = "OVO" if reference else "OVR"
+        t0 = time.perf_counter()
+        df = simulate_multihost(adata, False, "group", reference, n_hosts=2,
+                                devices_per_host=1, devices=pool[:2])
+        wall = time.perf_counter() - t0
+        np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
+        if not df.index.equals(ctx["frames"][tag].index):
+            raise AssertionError(f"[10d] {tag}: index differs from phase 5's")
+        runs[f"10d simulate_multihost {tag}"] = {"wall_s": wall}
+        print(f"[10d] simulate_multihost 2 hosts x 1 device {tag}: frame equals phase 5's "
+              f"bit for bit, {wall:.3f} s", flush=True)
+    launches_sim = he.hist_pass.launches - launches
+    mx, mlabels = medium_problem()
+    single = {
+        tag: asymptotic_wilcoxon_arrays(mx, mlabels, reference=ref, progress=False, **api_kw
+                                        ).values
+        for tag, ref in (("OVO", "g0"), ("OVR", None))
+    }
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{sock.getsockname()[1]}"
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "illico_tpu_torch", "_build", "multihost")
+    os.makedirs(out_dir, exist_ok=True)
+    outs = [os.path.join(out_dir, f"rank{r}.npz") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-worker", address,
+             str(r), str(pool[r]), outs[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)
+    ]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=worker_timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            raise AssertionError(f"[10d] process {r} failed ({proc.returncode}):\n"
+                                 f"{logs[r][-3000:] if r < len(logs) else ''}")
+    ranks = [np.load(o) for o in outs]
+    for tag in ("OVO", "OVR"):
+        np.testing.assert_array_equal(ranks[0][tag], ranks[1][tag])
+        np.testing.assert_array_equal(ranks[0][tag], single[tag])
+    timing = {f"rank{r}": {k: float(ranks[r][k]) for k in ("joined_s", "OVO_s", "OVR_s")}
+              for r in range(2)}
+    print(f"[10d] two processes joined by gloo on {[str(d) for d in pool[:2]]}, "
+          f"{MEDIUM_SHAPE[0]} x {MEDIUM_SHAPE[1]} x {MEDIUM_SHAPE[2]}: frames identical and "
+          f"equal to the single-process frame; {wall:.2f} s from start to exit, per process "
+          f"{json.dumps(timing)}", flush=True)
+    stats["sharded"] = dict(runs=runs, launches=launches + moved + launches_sim,
+                            add_ms=add_ms, two_process_wall_s=wall, timing=timing)
+    stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), worst)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
-    phases = {int(p) for p in parser.parse_args().phases.split(",")}
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    parser.add_argument("--multihost-worker", nargs=4, help=argparse.SUPPRESS,
+                        metavar=("ADDRESS", "RANK", "DEVICE", "OUT"))
+    args = parser.parse_args()
+    phases = {int(p) for p in args.phases.split(",")}
 
     import torch
 
@@ -819,6 +1081,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import illico_tpu_torch  # noqa: F401  (fails outside the repository)
+
+    if args.multihost_worker:
+        address, rank, device, out = args.multihost_worker
+        return multihost_worker(address, int(rank), device, out)
 
     smi = nvidia_smi_line()
     print(f"[1] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
@@ -838,6 +1104,8 @@ def main() -> int:
         phase_full(stats, ctx)
     if 9 in phases:  # before phase 7: it shares phase 5's matrix and frames
         phase_device_input(stats, ctx)
+    if 10 in phases:  # so does phase 10
+        phase_sharded(stats, ctx)
     ctx.clear()
     if 6 in phases:
         phase_csort()
@@ -853,6 +1121,7 @@ def main() -> int:
         "replaces": "illico_tpu/ops/hist_engine.py:80",
         "launches": stats.get("launches"),
         "launches_device_input": stats.get("device_input", {}).get("launches"),
+        "launches_sharded": stats.get("sharded", {}).get("launches"),
         "max_abs_err": stats.get("max_abs_err"),
         "ms": stats.get("ms"),
         "plain_ms": stats.get("plain_ms"),

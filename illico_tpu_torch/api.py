@@ -4,10 +4,12 @@ Same signature and output contract as ``illico_tpu.api``: a DataFrame
 indexed by ``(pert, feature)`` with columns ``p_value``, ``statistic`` (U of
 the reference sample, exact) and ``fold_change``.  Computation runs on
 ``torch.device("cuda")`` unless ``device`` says otherwise (the tests pass
-``device="cpu"``, where every kernel runs as its plain torch version).
+``device="cpu"``, where every kernel runs as its plain torch version), or
+over several devices with ``devices=``.
 
 The DataFrame's ``attrs["stage_seconds"]`` holds the run's per-stage
-seconds (see :class:`illico_tpu_torch.models.wilcoxon.RunResult`) and
+seconds (see :class:`illico_tpu_torch.models.wilcoxon.RunResult`),
+``attrs["stage_seconds_by_device"]`` the device stages per device, and
 ``attrs["consume_path"]`` how many tiles the native tail and numpy consumed.
 """
 
@@ -25,7 +27,12 @@ from illico_tpu_torch.utils.groups import encode_and_count_groups
 from illico_tpu_torch.utils.log import logger
 from illico_tpu_torch.utils.registry import data_handler_registry, ensure_backed_handlers
 
-__all__ = ["asymptotic_wilcoxon", "asymptotic_wilcoxon_arrays", "resolve_device"]
+__all__ = [
+    "asymptotic_wilcoxon",
+    "asymptotic_wilcoxon_arrays",
+    "resolve_device",
+    "resolve_mesh",
+]
 
 
 def resolve_device(device, X=None) -> torch.device:
@@ -53,6 +60,31 @@ def resolve_device(device, X=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def resolve_mesh(devices, device=None, X=None):
+    """The mesh of a ``devices=`` spec, or None for a single-device run.
+
+    With ``device=None`` the pool is the visible CUDA devices (a CUDA tensor
+    ``X`` puts its own device first), and asking for more than there are
+    raises ``ValueError``.  An explicit ``device`` places every shard on
+    that device as logical shards.
+    """
+    from illico_tpu_torch.parallel.cells import mesh_from_spec
+
+    if devices is None:
+        return None
+    dev = resolve_device(device, X)
+    if device is not None:
+        # As many entries as any valid spec can ask for; a malformed spec
+        # raises in mesh_from_spec whatever the pool.
+        n = int(np.prod(devices)) if isinstance(devices, (tuple, list)) else int(devices)
+        return mesh_from_spec(devices, devices=[dev] * max(n, 1))
+    pool = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if dev.index is not None and dev in pool:
+        pool.remove(dev)
+        pool.insert(0, dev)
+    return mesh_from_spec(devices, devices=pool)
 
 
 def asymptotic_wilcoxon(
@@ -93,22 +125,35 @@ def asymptotic_wilcoxon(
     loads the CUDA kernel and the native C++ tail and runs the tile function
     once on a zero tile of the run's shape.  ``profile_dir`` wraps the run
     in ``torch.profiler.profile`` and writes a Chrome trace
-    (``trace.json``) into that directory.  ``devices`` (multi-device) is not
-    ported yet and raises ``NotImplementedError``.
+    (``trace.json``) into that directory.
 
-    ``df.attrs`` carries ``stage_seconds``, ``engine``, ``n_fallback_cols``
-    and ``consume_path`` (tiles consumed by the native tail and by numpy).
+    ``devices`` selects multi-device sharding: an int ``n > 1`` shards every
+    tile over a 1-D gene mesh of ``n`` devices (no communication between
+    them, any engine); a pair ``(cell_devices, gene_devices)`` lays the
+    devices out as a 2-D mesh whose cell axis splits the rows and sums the
+    per-shard histograms on one device per gene shard (histogram engine
+    only): the scaling axis for datasets too tall for one device's memory.
+    ``None`` uses one device.  The pool is the visible CUDA devices, and
+    asking for more than there are raises ``ValueError``.  With an explicit
+    ``device`` (the tests' ``"cpu"``, or ``"cuda:0"`` on a one-card machine)
+    every shard is placed on that device as a logical shard with a stream of
+    its own: that buys coverage of the sharded code, not speed.  A CUDA
+    tensor input is sliced per shard where it lives and copied to a shard's
+    device when that is another card.
+
+    ``df.attrs`` carries ``stage_seconds``, ``stage_seconds_by_device``,
+    ``engine``, ``n_fallback_cols`` and ``consume_path`` (shard tiles
+    consumed by the native tail and by numpy).
     """
     if alternative not in ("two-sided", "greater", "less"):
         raise ValueError(f"Unsupported alternative hypothesis: {alternative}")
-    if devices is not None:
-        raise NotImplementedError("devices= (multi-device runs) is not ported yet.")
     ensure_backed_handlers()
     if layer is not None:
         logger.info(f"Using layer '{layer}' for differential expression.")
         X = adata.layers[layer]
     else:
         X = adata.X
+    mesh = resolve_mesh(devices, device, X)
     dev = resolve_device(device, X)
 
     handler = data_handler_registry.get(X)
@@ -130,6 +175,7 @@ def asymptotic_wilcoxon(
         info,
         is_log1p=is_log1p,
         device=dev,
+        mesh=mesh,
         batch_size=batch_size,
         n_threads=n_threads,
         use_continuity=use_continuity,
@@ -144,6 +190,7 @@ def asymptotic_wilcoxon(
 
     df = build_result_frame(unique_groups, adata.var_names, res.stacked.reshape(-1, 3))
     df.attrs["stage_seconds"] = {"setup": setup, **res.stage_seconds}
+    df.attrs["stage_seconds_by_device"] = res.stage_seconds_by_device
     df.attrs["engine"] = runner.engine
     df.attrs["n_fallback_cols"] = res.n_fallback_cols
     df.attrs["consume_path"] = dict(res.consume_path)

@@ -1,7 +1,7 @@
 """Orchestration of the asymptotic Wilcoxon test over gene tiles.
 
-Port of ``illico_tpu.models.wilcoxon`` (single device).  Gene columns are
-processed in contiguous tiles: prefetch threads densify the next tiles while
+Port of ``illico_tpu.models.wilcoxon``.  Gene columns are processed in
+contiguous tiles: prefetch threads densify the next tiles while
 the device works on the current one; each tile is staged through a pinned
 host buffer, copied to the device without blocking, reduced to
 per-(group, gene) statistics by the histogram, sort or compact sort engine,
@@ -14,6 +14,14 @@ tiles (nonzeros only) are built by the prefetch threads and staged as three
 arrays.  A matrix that already lives on the device (a ``torch.Tensor``
 there) is sliced in place: no fetch, no staging, every tile dispatched up
 front.
+
+Under a device mesh (:mod:`illico_tpu_torch.parallel`) a tile splits into
+one contiguous column range per gene shard, and the loop runs over (tile,
+shard) pairs: each shard has its own device, stream, pinned staging slots,
+result-buffer pool and stage clock, and consecutive pairs go to different
+shards, so distinct cards overlap.  Under a cell mesh a gene shard's tile
+also splits into one row block per cell shard (see
+:mod:`illico_tpu_torch.parallel.cells`).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 
 from illico_tpu_torch.ops.csort_engine import CompactTile
 from illico_tpu_torch.ops.rank_engine import BLOCK, build_padded_layout, make_tile_fn
+from illico_tpu_torch.parallel.mesh import Shard, on_device, warm_shards
 from illico_tpu_torch.stats import fold_change_from_summed_expr, pvalues_from_stats
 from illico_tpu_torch.utils.groups import GroupInfo
 from illico_tpu_torch.utils.log import logger
@@ -55,8 +64,15 @@ _DEVICE_MEM_SHARE = 0.5
 # (a row stride keeps it between this and twice this on taller inputs).
 _COLSTAT_ROWS = 1 << 16
 
-# Device stages timed per tile, in stream order (see _StageClock).
+# Device stages timed per tile, in stream order (see _StageClock); a cell
+# mesh adds "reduce" (the sum of the shards' histograms) after "kernel".
 DEVICE_STAGES = ("h2d", "kernel", "contract", "pack", "d2h")
+
+# Columns a gene shard's share of a tile is a multiple of: the histogram
+# kernel works in 32-column blocks, and the packed wire's widest element
+# alignment is 4 columns (ops.hist_engine.packed_width).
+_SHARD_ALIGN = {"hist": 32}
+_SHARD_ALIGN_DEFAULT = 4
 
 
 @dataclasses.dataclass
@@ -69,8 +85,11 @@ class RunResult:
     # (sort-engine recompute) and "precompile" (the warm-up, when run).
     stage_seconds: dict
     n_fallback_cols: int
-    # Tiles of the main loop consumed by the native library and by numpy.
+    # Tiles of the main loop (per gene shard under a mesh) consumed by the
+    # native library and by numpy.
     consume_path: dict = dataclasses.field(default_factory=dict)
+    # The device stages of stage_seconds split by the shards' lead devices.
+    stage_seconds_by_device: dict = dataclasses.field(default_factory=dict)
 
 
 def compute_tile_bounds(
@@ -105,46 +124,63 @@ def compute_tile_bounds(
 
 
 class _StageClock:
-    """Per-stage time accounting for the tile loop.
+    """Device-stage time accounting for one shard's tiles.
 
-    On CUDA, ``mark`` records an event on the current stream and the time
-    between consecutive marks is charged to the later mark's stage, read
-    once at the end (no synchronization inside the loop).  On the CPU the
-    work is synchronous and the host clock does the same job.
+    On CUDA, ``mark`` records an event on the device's current stream (the
+    shard's, inside the shard's context) and the time between consecutive
+    marks is charged to the later mark's stage, read once at the end (no
+    synchronization inside the loop).  On the CPU the work is synchronous
+    and the host clock does the same job.
     """
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.cuda = device.type == "cuda"
-        self.seconds = {
-            s: 0.0 for s in ("precompile", "fetch", *DEVICE_STAGES, "tail", "fallback")
-        }
         self._marks: list[tuple[str, object]] = []
 
     def mark(self, stage: str | None) -> None:
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            ev.record(torch.cuda.current_stream(self.device))
         else:
             ev = time.perf_counter()
         self._marks.append((stage, ev))
 
-    def add(self, stage: str, seconds: float) -> None:
-        self.seconds[stage] += seconds
-
     def finish(self) -> dict:
+        """Seconds per device stage; waits for the device first."""
         if self.cuda:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(self.device)
+        seconds = {s: 0.0 for s in DEVICE_STAGES}
         for (_, a), (stage, b) in zip(self._marks, self._marks[1:]):
             if stage is None:  # a tile boundary: nothing ran between
                 continue
             dt = a.elapsed_time(b) / 1e3 if self.cuda else b - a
-            self.seconds[stage] += dt
+            seconds[stage] = seconds.get(stage, 0.0) + dt
         self._marks = []
-        return dict(self.seconds)
+        return seconds
+
+
+@dataclasses.dataclass
+class _ShardRun:
+    """One shard's state for one run of the tile loop."""
+
+    shard: Shard
+    clock: _StageClock
+    # Pinned result buffers by size, and pinned staging slots (host input).
+    pool: dict = dataclasses.field(default_factory=dict)
+    slots: list = dataclasses.field(default_factory=list)
+    n_staged: int = 0
+
+    def next_slot(self) -> dict:
+        slot = self.slots[self.n_staged % len(self.slots)]
+        self.n_staged += 1
+        return slot
 
 
 class WilcoxonRunner:
-    """Configured Wilcoxon test over a dataset on one torch device."""
+    """Configured Wilcoxon test over a dataset on one torch device, or over
+    the devices of a mesh (``mesh=``, which then takes the place of
+    ``device``; the sort fallback runs on the mesh's first device)."""
 
     _FALLBACK_WIDTH = 128
 
@@ -154,13 +190,14 @@ class WilcoxonRunner:
         group_info: GroupInfo,
         *,
         is_log1p: bool,
-        device: torch.device,
+        device: torch.device | None = None,
         batch_size: int | Literal["auto"] = "auto",
         n_threads: int = 1,
         use_continuity: bool = True,
         tie_correct: bool = True,
         alternative: str = "two-sided",
         engine: Literal["auto", "sort", "hist", "csort"] = "auto",
+        mesh=None,
     ):
         self.handler = handler
         self.info = group_info
@@ -169,7 +206,11 @@ class WilcoxonRunner:
         self.tie_correct = tie_correct
         self.alternative = alternative
         self.n_threads = max(1, int(n_threads))
-        self.device = torch.device(device)
+        if mesh is None and device is None:
+            raise ValueError("WilcoxonRunner needs a device or a mesh.")
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else torch.device(device)
+        self._cell_mesh = mesh is not None and "cells" in mesh.axis_names
 
         self.n_genes = int(handler.shape[1])
         self.layout = build_padded_layout(group_info.perm, group_info.indptr, BLOCK)
@@ -202,6 +243,12 @@ class WilcoxonRunner:
                 "built by the host tiler. Device-resident tensors use "
                 "engine='sort' or 'hist'."
             )
+        if engine == "csort" and self._cell_mesh:
+            raise ValueError(
+                "engine='csort' cannot shard the cell axis (per-group rank "
+                "sums do not compose across cell shards); use a 1-D gene "
+                "mesh (devices=<int>) or the histogram engine."
+            )
         if engine == "hist" and self.value_dtype == np.float64:
             raise ValueError(
                 "engine='hist' does not support float64 input: the "
@@ -229,22 +276,72 @@ class WilcoxonRunner:
                 integral=conforms if not self.is_log1p else None,
             )
         self._v_buckets = self._pick_v_buckets() if engine == "hist" else 0
+        n_gene_shards = 1
+        if mesh is not None:
+            if self._cell_mesh:
+                # The cell axis shards through additive per-shard histograms
+                # (parallel/cells.py), which the sort engines cannot express.
+                if tuple(mesh.axis_names) != ("cells", "genes"):
+                    raise ValueError(
+                        "2-D meshes must have axes ('cells', 'genes'); got "
+                        f"{mesh.axis_names}. Build one with "
+                        "illico_tpu_torch.parallel.cells.make_mesh_2d."
+                    )
+                if engine != "hist":
+                    raise ValueError(
+                        "Cell-axis sharding requires the histogram engine: "
+                        "per-group rank sums do not compose across cell "
+                        f"shards in the sort engine, but engine {engine!r} "
+                        "was selected (auto-selection routes float64 inputs "
+                        "and out-of-bound group sizes there). Use a 1-D "
+                        "gene mesh (devices=<int>) for this dataset."
+                    )
+            n_gene_shards = int(mesh.shape["genes"])
         self.bounds, self.tile_width = compute_tile_bounds(
             self.n_genes, batch_size, self.n_threads,
             auto_width=self._auto_tile_width(),
         )
+        if mesh is not None:
+            # Every gene shard gets an equal, aligned share of a tile.
+            align = n_gene_shards * _SHARD_ALIGN.get(engine, _SHARD_ALIGN_DEFAULT)
+            if self.tile_width % align:
+                self.tile_width = -(-self.tile_width // align) * align
+                self.bounds = [
+                    (lb, min(lb + self.tile_width, self.n_genes))
+                    for lb in range(0, self.n_genes, self.tile_width)
+                ]
+        self._shard_width = self.tile_width // n_gene_shards
         if engine == "hist":
-            from illico_tpu_torch.ops.hist_engine import make_hist_tile_fn
-
-            self.tile_fn = make_hist_tile_fn(
-                self.layout,
-                ref_code=group_info.ref_code,
-                is_log1p=self.is_log1p,
-                v_buckets=self._v_buckets,
-                device=self.device,
-                fc_u8_hint=self._fc_u8_hint(),
+            hist_kw = dict(
+                ref_code=group_info.ref_code, is_log1p=self.is_log1p,
+                v_buckets=self._v_buckets, fc_u8_hint=self._fc_u8_hint(),
                 nnz_split_hint=self._nnz_split_hint(),
             )
+        if self._cell_mesh:
+            from illico_tpu_torch.parallel.cells import (
+                build_cell_shard_plans,
+                make_cell_sharded_hist_fn,
+            )
+
+            plan = build_cell_shard_plans(group_info, int(mesh.shape["cells"]))
+            self.tile_fn = make_cell_sharded_hist_fn(self.layout, plan, mesh, **hist_kw)
+        elif mesh is not None:
+            from illico_tpu_torch.parallel import mesh as pmesh
+
+            if engine == "hist":
+                self.tile_fn = pmesh.make_sharded_hist_fn(self.layout, mesh, **hist_kw)
+            elif engine == "csort":
+                self.tile_fn = pmesh.make_sharded_csort_fn(
+                    group_info, mesh, ref_code=group_info.ref_code, is_log1p=self.is_log1p,
+                )
+            else:
+                self.tile_fn = pmesh.make_sharded_tile_fn(
+                    self.layout, mesh, ref_code=group_info.ref_code, is_log1p=self.is_log1p,
+                )
+        elif engine == "hist":
+            from illico_tpu_torch.ops.hist_engine import make_hist_tile_fn
+
+            self.tile_fn = make_hist_tile_fn(self.layout, device=self.device, **hist_kw)
         elif engine == "csort":
             from illico_tpu_torch.ops.csort_engine import make_csort_tile_fn
 
@@ -262,10 +359,16 @@ class WilcoxonRunner:
                 device=self.device,
                 pack=True,
             )
+        # The gene shards of a tile: the mesh's, or the one device on its
+        # current stream.
+        self.shards = (
+            self.tile_fn.shards if mesh is not None
+            else [Shard(self.tile_fn, (self.device,), (None,), {"calls": 0})]
+        )
         logger.trace(
             "Engine %s, tile width %d for %d genes (%d tiles) on %s.",
             self.engine, self.tile_width, self.n_genes, len(self.bounds),
-            self.device,
+            self.device if mesh is None else f"mesh {mesh.shape} of {set(mesh.devices)}",
         )
 
     # -- engine choice ---------------------------------------------------------
@@ -274,7 +377,7 @@ class WilcoxonRunner:
         sparse enough (exact density from sparse handlers, the sampled one
         from dense and backed-dense handlers), else sort."""
         engine = self._auto_full_engine()
-        if engine == "sort" and not self._device_resident:
+        if engine == "sort" and not self._device_resident and not self._cell_mesh:
             d = self.handler.density()
             if d is None:
                 # float64 inputs reach here without a prior sample.
@@ -335,7 +438,8 @@ class WilcoxonRunner:
         (2048 hist, 1024 csort, whose tiles hold only nonzeros, 512 sort),
         within the host budget for in-flight tiles (host inputs) and, for
         the histogram engine, within a share of the free device memory for
-        the (G, V, T) float32 histogram plus the staged tile."""
+        the (G, V, T) float32 histograms plus the staged tiles (see
+        :meth:`_device_tile_cap`)."""
         from illico_tpu_torch.utils.memory import host_tile_budget
 
         wide_cap = {"hist": 2048, "csort": 1024}.get(self.engine, 512)
@@ -352,17 +456,54 @@ class WilcoxonRunner:
                     "raise ILLICO_TPU_HOST_BUDGET or lower n_threads.",
                     budget / 1e6, max(wide_cap, 0), per_col * 128 / 1e6,
                 )
-        free = device_free_bytes(self.device)
-        if self.engine == "hist" and free is not None:
-            from illico_tpu_torch.ops.hist_engine import CONTRACT_CHUNK_BYTES
-
-            per_dev_col = (
-                max(1, self.info.n_groups) * self._v_buckets * 4
-                + self.handler.shape[0] * 4
-            )
-            usable = _DEVICE_MEM_SHARE * free - 4 * CONTRACT_CHUNK_BYTES
-            wide_cap = min(wide_cap, int(usable / per_dev_col))
+        if self.engine == "hist":
+            device_cap = self._device_tile_cap()
+            if device_cap is not None:
+                wide_cap = min(wide_cap, device_cap)
         return max(128, (wide_cap // 128) * 128)
+
+    def _device_tile_cap(self) -> int | None:
+        """Widest histogram-engine tile (all gene shards together) whose
+        workspace fits a share of each device's free memory; None when no
+        device reports its memory (the CPU).
+
+        Per column of a gene shard's share, a device holds one (G, V)
+        float32 histogram and its rows of the tile for every shard placed on
+        it (logical shards of one card share that card's memory), and the
+        lead of a cell-sharded gene column also holds the histograms that
+        arrive from the column's other devices until they are summed.  Each
+        gene shard a device leads takes the contraction's bounded float64
+        workspace besides.
+        """
+        from illico_tpu_torch.ops.hist_engine import CONTRACT_CHUNK_BYTES
+
+        n_cells = int(self.handler.shape[0])
+        if self.mesh is None:
+            columns = [(self.device,)]
+        else:
+            columns = [self.mesh.column(j) for j in range(int(self.mesh.shape["genes"]))]
+        hists: dict = {}
+        rows: dict = {}
+        led: dict = {}
+        for devices in columns:
+            lead = devices[0]
+            led[lead] = led.get(lead, 0) + 1
+            rows_each = -(-n_cells // len(devices))
+            for dev in devices:
+                hists[dev] = hists.get(dev, 0) + 1
+                rows[dev] = rows.get(dev, 0) + rows_each
+                if dev != lead:
+                    hists[lead] = hists.get(lead, 0) + 1
+        hist_col = max(1, self.info.n_groups) * self._v_buckets * 4
+        shard_cap = None
+        for dev, n_hists in hists.items():
+            free = device_free_bytes(dev)
+            if free is None:
+                continue
+            usable = _DEVICE_MEM_SHARE * free - 4 * CONTRACT_CHUNK_BYTES * led.get(dev, 0)
+            cap = int(usable / (n_hists * hist_col + rows[dev] * 4))
+            shard_cap = cap if shard_cap is None else min(shard_cap, cap)
+        return None if shard_cap is None else shard_cap * len(columns)
 
     def _sampled_device_windows(self, starts, w: int):
         """Window statistics of a device-resident matrix with ONE pull for
@@ -572,10 +713,10 @@ class WilcoxonRunner:
     def precompile(self) -> float:
         """Pay the one-time costs before the tile loop: build and load the
         native tail (C++ compiler) and, on CUDA, the histogram kernel
-        (nvcc), then run the tile function once on a zero tile of the run's
-        shape, so the loop meets a loaded library, initialized device
-        modules and a warm allocator.  (The sort engine's zero tile is 8
-        columns wide.)  Returns the seconds it took."""
+        (nvcc), then run the tile function once per distinct device on a
+        zero tile of a shard's shape, so the loop meets a loaded library,
+        initialized device modules and a warm allocator.  (The sort engine's
+        zero tile is 8 columns wide.)  Returns the seconds it took."""
         from illico_tpu_torch.native import native_available
 
         t0 = time.perf_counter()
@@ -583,30 +724,25 @@ class WilcoxonRunner:
         if self.engine == "csort":
             from illico_tpu_torch.ops.csort_engine import _SEG_BLOCK
 
-            g, t = self.info.n_groups, self.tile_width
+            g, t = self.info.n_groups, self._shard_width
             tile = CompactTile(
                 np.full((_SEG_BLOCK, t), np.inf, self.value_dtype),
                 None if self.info.is_ovr else np.full((_SEG_BLOCK, t), g, np.uint16),
                 np.zeros((g + 1, t), np.int32),
                 t,
             )
-            buf = self.tile_fn(tile)
+            warm_shards(self.shards, lambda shard: tile)
         else:
             # The sort engine builds nothing lazily and a tile of it costs
             # as much as a tile of the run: a narrow one warms it up.
-            width = self.tile_width if self.engine == "hist" else min(self.tile_width, 8)
-            x = torch.zeros(
-                (self.handler.shape[0], width),
-                dtype=torch.from_numpy(np.empty(0, self.wire_dtype)).dtype,
-                device=self.device,
-            )
-            buf = self.tile_fn(x)
-            del x
-        buf.cpu()
+            width = self._shard_width if self.engine == "hist" else min(self._shard_width, 8)
+            dtype = torch.from_numpy(np.empty(0, self.wire_dtype)).dtype
+            n_cells = int(self.handler.shape[0])
+            warm_shards(self.shards, lambda shard: shard.zeros(n_cells, width, dtype))
         seconds = time.perf_counter() - t0
         logger.trace(
             "Warm-up of the %s tile function (%d, %d): %.2fs.",
-            self.engine, self.handler.shape[0], self.tile_width, seconds,
+            self.engine, self.handler.shape[0], self._shard_width, seconds,
         )
         self._precompile_seconds = seconds
         return seconds
@@ -632,76 +768,121 @@ class WilcoxonRunner:
             return torch.nn.functional.pad(tile, (0, width - tile.shape[1]))
         return tile.contiguous()
 
+    def _work_items(self) -> list[tuple[int, int, int]]:
+        """The (tile, shard) pairs of the run as ``(lb, ub, j)``: gene shard
+        ``j`` of a tile takes its ``j``-th share of ``_shard_width``
+        columns; shares past the end of a short last tile do not exist.
+        Consecutive items go to different shards."""
+        items = []
+        for lb, ub in self.bounds:
+            for j in range(len(self.shards)):
+                s_lb = lb + j * self._shard_width
+                if s_lb < ub:
+                    items.append((s_lb, min(s_lb + self._shard_width, ub), j))
+        return items
+
     def _fetch(self, lb: int, ub: int):
-        """Tile of columns [lb, ub).  Host inputs: runs on a prefetch
-        thread.  csort: the compacted tile, nonzeros only; a short final
-        tile is padded with empty columns to ``tile_width``.  A
-        device-resident matrix is sliced where it lives, a short final tile
-        padded to ``tile_width``."""
+        """Columns [lb, ub) of one shard's tile.  Host inputs: runs on a
+        prefetch thread.  csort: the compacted tile, nonzeros only; a short
+        final tile is padded with empty columns to the shard's width.  A
+        device-resident matrix gives its column slice where it lives
+        (:meth:`_place_device_tile` makes the shard's tile of it)."""
         if self._device_resident:
-            return self._device_tile(self.handler.fetch_tile(lb, ub), self.tile_width)
+            return self.handler.fetch_tile(lb, ub)
         if self.engine == "csort":
             from illico_tpu_torch.ops.csort_engine import compact_from_entries
 
             v, r, c = self.handler.fetch_tile_entries(lb, ub)
             return compact_from_entries(
-                v, r, c, self.tile_width, self.info.encoded_groups,
+                v, r, c, self._shard_width, self.info.encoded_groups,
                 self.info.n_groups, value_dtype=self.value_dtype,
                 need_grp=not self.info.is_ovr,
             )
         return self._host_tile(self.handler.fetch_tile(lb, ub))
 
-    def _stage(self, arrays: list[np.ndarray], slot) -> list[torch.Tensor]:
-        """Host arrays -> device tensors.  On CUDA each array goes through
-        a pinned staging buffer of ``slot`` and a non-blocking copy; the
-        slot's event marks when its buffers may be refilled.  A buffer
-        grows to the largest array it has held and is then reused, so
-        tiles whose compacted height varies do not reallocate pinned
-        memory every time."""
-        if self.device.type != "cuda":
-            return [torch.from_numpy(a).to(self.device) for a in arrays]
-        slot["event"].synchronize()
-        bufs = slot["bufs"]
+    def _place_device_tile(self, cols: torch.Tensor, shard: Shard, width: int):
+        """The shard's input from a column slice of a device-resident
+        matrix: cast, padded to ``width`` and made contiguous where the
+        matrix lives, on the shard's stream when that is the same card,
+        then copied when the shard's device is another one (the copy orders
+        itself between the two devices' current streams).  A cell-sharded
+        shard gets one row block per device."""
+        if shard.row_bounds is None:
+            with shard.on():
+                return self._device_tile(cols, width).to(shard.device, non_blocking=True)
+        blocks = []
+        for (lo, hi), dev, stream in zip(shard.row_bounds, shard.devices, shard.streams):
+            with on_device(dev, stream):
+                blocks.append(self._device_tile(cols[lo:hi], width).to(dev, non_blocking=True))
+        return blocks
+
+    @staticmethod
+    def _stage(arrays: list[np.ndarray], slot: dict, devices, streams) -> list[torch.Tensor]:
+        """Host arrays -> device tensors, ``arrays[i]`` to ``devices[i]`` on
+        ``streams[i]``.  On CUDA each array goes through a pinned staging
+        buffer of ``slot`` and a non-blocking copy; the slot's event for
+        that array marks when its buffer may be refilled.  A buffer grows
+        to the largest array it has held and is then reused, so tiles whose
+        compacted height varies do not reallocate pinned memory every
+        time."""
         staged = []
-        for i, a in enumerate(arrays):
+        for i, (a, dev, stream) in enumerate(zip(arrays, devices, streams)):
+            if dev.type != "cuda":
+                staged.append(torch.from_numpy(a).to(dev))
+                continue
+            event = slot["events"].get(i)
+            if event is not None:
+                event.synchronize()
             dtype = torch.from_numpy(a[:0]).dtype
-            buf = bufs.get((i, dtype))
+            buf = slot["bufs"].get((i, dtype))
             if buf is None or buf.numel() < a.size:
-                bufs[(i, dtype)] = buf = torch.empty(a.size, dtype=dtype, pin_memory=True)
+                slot["bufs"][(i, dtype)] = buf = torch.empty(a.size, dtype=dtype, pin_memory=True)
             host = buf[: a.size].view(a.shape)
             host.numpy()[...] = a
-            staged.append(host.to(self.device, non_blocking=True))
-        slot["event"].record()
+            with on_device(dev, stream):
+                staged.append(host.to(dev, non_blocking=True))
+                if event is None:
+                    event = slot["events"][i] = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
         return staged
 
-    def _new_slots(self, n: int) -> list[dict]:
-        cuda = self.device.type == "cuda"
-        return [{"bufs": {}, "event": torch.cuda.Event() if cuda else None} for _ in range(n)]
+    @staticmethod
+    def _new_slots(n: int) -> list[dict]:
+        return [{"bufs": {}, "events": {}} for _ in range(n)]
 
-    def _stage_tile(self, tile, slot):
-        """Stage a dense tile, or the arrays of a :class:`CompactTile`
-        (``grp`` as its int16 view: torch's uint16 has few device ops)."""
-        if not isinstance(tile, CompactTile):
-            return self._stage([tile], slot)[0]
-        arrays = [tile.vals, tile.indptr]
-        if tile.grp is not None:
-            arrays.append(tile.grp.view(np.int16))
-        staged = self._stage(arrays, slot)
-        grp = staged[2] if tile.grp is not None else None
-        return CompactTile(staged[0], grp, staged[1], tile.t_cols)
+    def _stage_tile(self, tile, slot: dict, shard: Shard):
+        """Stage a shard's tile: a dense tile (under a cell mesh its row
+        blocks, each to its own device), or the arrays of a
+        :class:`CompactTile` (``grp`` as its int16 view: torch's uint16 has
+        few device ops)."""
+        if isinstance(tile, CompactTile):
+            arrays = [tile.vals, tile.indptr]
+            if tile.grp is not None:
+                arrays.append(tile.grp.view(np.int16))
+            n = len(arrays)
+            staged = self._stage(arrays, slot, shard.devices[:1] * n, shard.streams[:1] * n)
+            grp = staged[2] if tile.grp is not None else None
+            return CompactTile(staged[0], grp, staged[1], tile.t_cols)
+        if shard.row_bounds is None:
+            return self._stage([tile], slot, shard.devices, shard.streams)[0]
+        blocks = [tile[lo:hi] for lo, hi in shard.row_bounds]
+        return self._stage(blocks, slot, shard.devices, shard.streams)
 
-    def _pull_async(self, buf: torch.Tensor, pool: dict):
-        """Start the copy of a packed device buffer to the host; returns
-        ``(host tensor, done event)``.  On CUDA the target is a pinned
-        buffer from ``pool`` (size -> free buffers), which the caller gives
-        back with :meth:`_release` after consuming it."""
+    @staticmethod
+    def _pull_async(buf: torch.Tensor, pool: dict):
+        """Start the copy of a packed device buffer to the host on the
+        current stream of its device; returns ``(host tensor, done
+        event)``.  On CUDA the target is a pinned buffer from ``pool``
+        (size -> free buffers), which the caller gives back with
+        :meth:`_release` after consuming it."""
         if buf.device.type != "cuda":
             return buf, None
         free = pool.setdefault(buf.numel(), [])
         host = free.pop() if free else torch.empty(buf.numel(), dtype=torch.uint8, pin_memory=True)
-        host.copy_(buf, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with torch.cuda.device(buf.device):
+            host.copy_(buf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(buf.device))
         return host, done
 
     @staticmethod
@@ -711,11 +892,12 @@ class WilcoxonRunner:
 
     # -- overflow fallback -------------------------------------------------------
     def _recompute_with_sort_engine(self, cols: np.ndarray, consume_stats) -> None:
-        """Exact recomputation of selected columns via the sort engine, in
-        chunks of ``_FALLBACK_WIDTH`` columns, pipelined like the main loop:
-        prefetch threads gather the chunks (a short last one padded to the
-        chunk width), dispatches run ahead of the pulls within a bounded
-        window, and each chunk's packed statistics come back through one
+        """Exact recomputation of selected columns via the sort engine on
+        ``self.device`` (under a mesh its first device), in chunks of
+        ``_FALLBACK_WIDTH`` columns, pipelined like the main loop: prefetch
+        threads gather the chunks (a short last one padded to the chunk
+        width), dispatches run ahead of the pulls within a bounded window,
+        and each chunk's packed statistics come back through one
         non-blocking copy."""
         sort_fn = make_tile_fn(
             self.layout, ref_code=self.info.ref_code, is_log1p=self.is_log1p,
@@ -723,11 +905,12 @@ class WilcoxonRunner:
         )
         fw = self._FALLBACK_WIDTH
         chunks = [cols[s : s + fw] for s in range(0, cols.size, fw)]
+        shard = Shard(sort_fn, (self.device,), (None,), {"calls": 0})
 
         def fetch(chunk):
             tile = self.handler.fetch_columns(chunk)
             if self._device_resident:
-                return self._device_tile(tile, fw)
+                return tile
             return self._host_tile(np.asarray(tile), fw)
 
         n_prefetch = max(2, self.n_threads)
@@ -750,9 +933,12 @@ class WilcoxonRunner:
                 tile = futures.pop(i).result()
                 if i + ahead < len(chunks):
                     futures[i + ahead] = workers.submit(fetch, chunks[i + ahead])
-                if not self._device_resident:
-                    tile = self._stage([tile], slots[i % len(slots)])[0]
-                host, done = self._pull_async(sort_fn(tile), pool)
+                if self._device_resident:
+                    tile = self._place_device_tile(tile, shard, fw)
+                else:
+                    tile = self._stage_tile(tile, slots[i % len(slots)], shard)
+                with shard.on():
+                    host, done = self._pull_async(sort_fn(tile), pool)
                 del tile
                 pending.append((chunk, host, done))
                 if len(pending) > depth:
@@ -861,15 +1047,14 @@ class WilcoxonRunner:
         from illico_tpu_torch.native import consume_tile_native
 
         consume_path = {"native": 0, "numpy": 0}
-        find_spec, unpack = self.tile_fn.find_spec, self.tile_fn.unpack
 
-        def consume(lb, ub, buf: np.ndarray):
-            """One tile's packed host buffer -> its columns of ``results``:
+        def consume(lb, ub, buf: np.ndarray, tile_fn):
+            """One shard's packed host buffer -> its columns of ``results``:
             the fused native pass (decode, statistics, p and fc in one C
             loop straight into the result buffer) when the library is
             there, numpy otherwise."""
             w_cols = ub - lb
-            spec = find_spec(buf.size)
+            spec = tile_fn.find_spec(buf.size)
             if spec is not None and "overflow_cols" in spec:
                 _, _, off, nbytes = spec["overflow_cols"]
                 bad = np.flatnonzero(buf[off : off + nbytes][:w_cols])
@@ -883,75 +1068,101 @@ class WilcoxonRunner:
                     consume_path["native"] += 1
                     return
             consume_path["numpy"] += 1
-            consume_stats(np.arange(lb, ub), unpack(buf))
+            consume_stats(np.arange(lb, ub), tile_fn.unpack(buf))
 
-        clock = _StageClock(self.device)
-        clock.add("precompile", getattr(self, "_precompile_seconds", 0.0))
+        host_seconds = {
+            "precompile": getattr(self, "_precompile_seconds", 0.0),
+            "fetch": 0.0, "tail": 0.0, "fallback": 0.0,
+        }
         self._precompile_seconds = 0.0
-        pool: dict = {}  # pinned result buffers, by size
+        n_workers = max(2, self.n_threads)  # prefetch threads
+        runs = [_ShardRun(shard, _StageClock(shard.device)) for shard in self.shards]
+        for shard in self.shards:
+            shard.wait_for_current_streams()
 
-        def dispatch(x):
-            """Tile on the device -> (host buffer, done event), stages
-            marked on the stream."""
-            buf = self.tile_fn(x, clock.mark)
-            clock.mark("pack")
-            pulled = self._pull_async(buf, pool)
-            clock.mark("d2h")
+        def dispatch(x, run: _ShardRun):
+            """A shard's tile on its device(s) -> (host buffer, done
+            event), stages marked on the shard's stream."""
+            with run.shard.on():
+                buf = run.shard(x, run.clock.mark)
+                run.clock.mark("pack")
+                pulled = self._pull_async(buf, run.pool)
+                run.clock.mark("d2h")
             return pulled
 
-        def pull(lb, ub, host, done):
+        def pull(lb, ub, run: _ShardRun, host, done):
             if done is not None:
                 done.synchronize()
             t0 = time.perf_counter()
-            consume(lb, ub, host.numpy())
-            clock.add("tail", time.perf_counter() - t0)
-            self._release(host, pool)
+            consume(lb, ub, host.numpy(), run.shard.fn)
+            host_seconds["tail"] += time.perf_counter() - t0
+            self._release(host, run.pool)
             if pbar is not None:
                 pbar.update(G * (ub - lb))
 
+        items = [(lb, ub, runs[j]) for lb, ub, j in self._work_items()]
         t_loop0 = time.perf_counter()
         if self._device_resident:
-            # The input is on the device and each tile's result is small:
+            # The input is on a device and each tile's result is small:
             # dispatch every tile up front (all asynchronous), then consume
-            # in order while the device drains its queue.
+            # in order while the devices drain their queues.
             pending = []
-            for lb, ub in self.bounds:
-                clock.mark(None)
-                pending.append((lb, ub, *dispatch(self._fetch(lb, ub))))
+            for lb, ub, run in items:
+                with run.shard.on():
+                    run.clock.mark(None)
+                x = self._place_device_tile(self._fetch(lb, ub), run.shard, self._shard_width)
+                pending.append((lb, ub, run, *dispatch(x, run)))
+                del x
             for item in pending:
                 pull(*item)
         else:
-            n_prefetch = max(2, self.n_threads)
-            depth = max(2, self.n_threads)
-            # One pinned staging slot per tile that can be in flight between
-            # its fetch and its device copy.
-            slots = self._new_slots(n_prefetch + 1)
-            pending = deque()  # (lb, ub, host buffer, done event)
-            with ThreadPoolExecutor(max_workers=n_prefetch) as workers:
-                ahead = min(n_prefetch, len(self.bounds))
-                futures = {i: workers.submit(self._fetch, *self.bounds[i]) for i in range(ahead)}
-                for i, (lb, ub) in enumerate(self.bounds):
+            # Fetches in flight and dispatches ahead of the pulls, in shard
+            # tiles: as many full tiles' worth as on one device.
+            ahead = min(n_workers * len(runs), len(items))
+            depth = n_workers * len(runs)
+            for run in runs:
+                # One pinned staging slot per tile of the shard that can be
+                # in flight between its fetch and its device copy.
+                run.slots = self._new_slots(n_workers + 1)
+            pending = deque()  # (lb, ub, shard run, host buffer, done event)
+            with ThreadPoolExecutor(max_workers=n_workers) as workers:
+                futures = {i: workers.submit(self._fetch, *items[i][:2]) for i in range(ahead)}
+                for i, (lb, ub, run) in enumerate(items):
                     t0 = time.perf_counter()
                     tile = futures.pop(i).result()
-                    clock.add("fetch", time.perf_counter() - t0)
-                    if i + ahead < len(self.bounds):
-                        futures[i + ahead] = workers.submit(self._fetch, *self.bounds[i + ahead])
-                    clock.mark(None)
-                    x = self._stage_tile(tile, slots[i % len(slots)])
-                    clock.mark("h2d")
-                    pending.append((lb, ub, *dispatch(x)))
+                    host_seconds["fetch"] += time.perf_counter() - t0
+                    if i + ahead < len(items):
+                        futures[i + ahead] = workers.submit(self._fetch, *items[i + ahead][:2])
+                    with run.shard.on():
+                        run.clock.mark(None)
+                    x = self._stage_tile(tile, run.next_slot(), run.shard)
+                    with run.shard.on():
+                        run.clock.mark("h2d")
+                    pending.append((lb, ub, run, *dispatch(x, run)))
                     del x, tile
                     if len(pending) > depth:
                         pull(*pending.popleft())
                 while pending:
                     pull(*pending.popleft())
-        stage_seconds = clock.finish()
+        by_device: dict = {}
+        for run in runs:
+            split = by_device.setdefault(str(run.shard.device), {})
+            for stage, dt in run.clock.finish().items():
+                split[stage] = split.get(stage, 0.0) + dt
+        device_seconds: dict = {s: 0.0 for s in DEVICE_STAGES}
+        for split in by_device.values():
+            for stage, dt in split.items():
+                device_seconds[stage] = device_seconds.get(stage, 0.0) + dt
+        stage_seconds = {
+            "precompile": host_seconds["precompile"], "fetch": host_seconds["fetch"],
+            **device_seconds, "tail": host_seconds["tail"], "fallback": 0.0,
+        }
         if pbar is not None:
             pbar.close()
         logger.trace(
-            "Tile loop: %.2fs over %d tiles (consume path: %d native, %d "
-            "numpy); stages %s.",
-            time.perf_counter() - t_loop0, len(self.bounds),
+            "Tile loop: %.2fs over %d tiles in %d shard tiles (consume path: "
+            "%d native, %d numpy); stages %s.",
+            time.perf_counter() - t_loop0, len(self.bounds), len(items),
             consume_path["native"], consume_path["numpy"], stage_seconds,
         )
 
@@ -977,4 +1188,5 @@ class WilcoxonRunner:
         return RunResult(
             stacked=results, stage_seconds=stage_seconds,
             n_fallback_cols=n_fallback, consume_path=consume_path,
+            stage_seconds_by_device=by_device,
         )

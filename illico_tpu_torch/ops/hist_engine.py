@@ -623,6 +623,7 @@ def make_hist_tile_fn(
     fc_u8_hint: bool = False,
     nnz_split_hint: bool = True,
     pack: bool = True,
+    hist_fn=None,
 ):
     """Histogram-engine tile function with the layout staged on ``device``.
 
@@ -635,6 +636,11 @@ def make_hist_tile_fn(
     and ``run.find_spec`` read such a buffer on the host, and
     ``run._statics`` holds the wire statics of
     :func:`hist_contract_statics`.
+
+    ``hist_fn(x, mark)``, when given, takes the place of :func:`hist_pass`
+    and does its own stage marks: the cell-sharded path passes the sum of
+    its shards' histograms, on ``device``, and ``x`` is then whatever that
+    function takes.
     """
     validate_hist_layout(layout)
     arrs = prepare_hist_inputs(layout, v_buckets, is_log1p, device)
@@ -668,16 +674,19 @@ def make_hist_tile_fn(
         return out
 
     def run(x, mark=None):
-        hist = hist_pass(x, *pass_args, is_log1p=is_log1p)
-        if mark is not None:
-            mark("kernel")
+        if hist_fn is not None:
+            hist = hist_fn(x, mark)
+        else:
+            hist = hist_pass(x, *pass_args, is_log1p=is_log1p)
+            if mark is not None:
+                mark("kernel")
+        t_cols = hist.shape[2]
         out = hist_contract(hist, ppg, **contract_kw)
         del hist
         if mark is not None:
             mark("contract")
         if not pack:
             return out
-        t_cols = x.shape[1]
         _spec_for(t_cols)
         return pack_device_outputs(_pad_columns(out, packed_width(t_cols)), narrow)[0]
 

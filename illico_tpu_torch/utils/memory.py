@@ -57,12 +57,16 @@ def host_tile_budget() -> int:
 
 
 def device_free_bytes(device: torch.device) -> int | None:
-    """Free device memory in bytes (``torch.cuda.mem_get_info``), or None
-    for a CPU device."""
+    """Device memory this process can still allocate, in bytes, or None for
+    a CPU device: what CUDA reports free (``torch.cuda.mem_get_info``) plus
+    what torch's caching allocator holds without using it, which CUDA counts
+    as taken (after a few large calls in one process that is most of the
+    card)."""
     if device.type != "cuda":
         return None
     free, _total = torch.cuda.mem_get_info(device)
-    return int(free)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return int(free) + int(cached)
 
 
 def estimate_memory_usage(

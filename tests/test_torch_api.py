@@ -340,8 +340,12 @@ def test_argument_errors(monkeypatch):
         illico_tpu_torch.asymptotic_wilcoxon(adata, **kw)
     with pytest.raises(ValueError, match="Invalid engine"):
         illico_tpu_torch.asymptotic_wilcoxon(adata, engine="bogus", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="devices"):
-        illico_tpu_torch.asymptotic_wilcoxon(adata, devices=2, device="cpu", **kw)
+    with pytest.raises(ValueError, match="pair"):
+        illico_tpu_torch.asymptotic_wilcoxon(adata, devices=(2,), device="cpu", **kw)
+    with pytest.raises(ValueError, match=">= 1"):
+        illico_tpu_torch.asymptotic_wilcoxon(adata, devices=(2, 0), device="cpu", **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        illico_tpu_torch.asymptotic_wilcoxon(adata, devices=2, **kw)
     with pytest.raises(ValueError, match="Unsupported alternative"):
         illico_tpu_torch.asymptotic_wilcoxon(adata, alternative="x", device="cpu", **kw)
     with pytest.raises(ValueError, match="not present"):
@@ -358,13 +362,67 @@ def test_import_leaves_jax_out():
         "illico_tpu_torch.ops.hist_engine, illico_tpu_torch.utils.cuda_build, "
         "illico_tpu_torch.ops.csort_engine, illico_tpu_torch.io.h5ad, "
         "illico_tpu_torch.ops.wire, illico_tpu_torch.native, illico_tpu_torch.stats, "
-        "illico_tpu_torch.utils.registry; "
+        "illico_tpu_torch.utils.registry, illico_tpu_torch.parallel.mesh, "
+        "illico_tpu_torch.parallel.cells, illico_tpu_torch.parallel.multihost; "
         "assert illico_tpu_torch.native.native_available(); "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'illico_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    # The multi-process layer is lazy: importing the package loads neither
+    # it nor any module of torch.distributed beyond what ``import torch``
+    # itself loads, and starts no process group.
+    code = (
+        "import sys, torch\n"
+        "before = {m for m in sys.modules if m.startswith('torch.distributed')}\n"
+        "import illico_tpu_torch\n"
+        "after = {m for m in sys.modules if m.startswith('torch.distributed')}\n"
+        "assert after == before, sorted(after - before)\n"
+        "assert 'illico_tpu_torch.parallel.multihost' not in sys.modules\n"
+        "fn = illico_tpu_torch.asymptotic_wilcoxon_multihost\n"
+        "assert 'illico_tpu_torch.parallel.multihost' in sys.modules\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_enable_compilation_cache_builds_into_its_directory(tmp_path):
+    """``enable_compilation_cache(path)`` builds the native tail into
+    ``path`` now (no nvcc and no CUDA device here, so no kernel), a later
+    API call loads it from there, and a call for another directory after
+    first use raises.  In a subprocess: it changes process-wide state."""
+    code = (
+        "import os, sys, numpy as np, illico_tpu_torch\n"
+        "import illico_tpu_torch.native as native\n"
+        "cache, other = sys.argv[1], sys.argv[2]\n"
+        "got = illico_tpu_torch.enable_compilation_cache(cache)\n"
+        "assert got == os.path.realpath(cache), got\n"
+        "built = os.listdir(cache)\n"
+        "assert len(built) == 1 and built[0].startswith('illico_tail_'), built\n"
+        "x = np.zeros((50, 3), np.float32); x[::7] = 1.5\n"
+        "df = illico_tpu_torch.asymptotic_wilcoxon_arrays(x, np.arange(50) % 2, "
+        "device='cpu', progress=False)\n"
+        "assert df.attrs['consume_path'] == {'native': 1, 'numpy': 0}\n"
+        "assert os.path.dirname(native.BUILD_INFO['path']) == got\n"
+        "assert os.listdir(cache) == built\n"
+        "assert illico_tpu_torch.enable_compilation_cache(cache) == got\n"
+        "try:\n"
+        "    illico_tpu_torch.enable_compilation_cache(other)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'before first use' in str(e)\n"
+        "    print('RAISED')\n"
+        "os.environ['ILLICO_TPU_COMPILE_CACHE'] = cache\n"
+        "assert illico_tpu_torch.enable_compilation_cache() == got\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "cache"), str(tmp_path / "other")],
+        capture_output=True, text=True, timeout=240,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "RAISED" in res.stdout
 
 
 def test_in_ram_call_runs_without_h5py():
