@@ -63,14 +63,20 @@ Phases, each printing its own lines:
     inputs of a 2-way and a 3-way cell split of phase 2's population (a
     group absent from a shard, a 1-cell group), each shard on a non-default
     stream, against its plain version bit for bit, and the sum over shards
-    against the unsharded histogram; (b) the public API with ``devices=2``
+    against the unsharded histogram, then the same on the two 150,000-row
+    blocks of phase 5's matrix with its labels' shard-local inputs, the
+    shapes the cell mesh gives the kernel; (b) the public API with ``devices=2``
     (gene mesh) and (c) ``devices=(2, 1)`` (cell mesh, host input and a CUDA
     tensor), OVO and OVR: frames equal phase 5's bit for bit, every shard
     tile on the native tail, stage seconds per device, the lead device's
     peak memory and the histogram add timed alone; (d)
     ``simulate_multihost`` with 2 hosts x 1 device at full width, and two
-    real processes joined by gloo at phase 4's size, both on the card, their
-    frames identical and equal to the single-process frame.
+    real processes joined by gloo, both on the card, at phase 4's size and
+    at full width (each makes the matrix from the seed and computes its
+    1,024-gene window), their frames identical and equal to the
+    single-process frame.  The kernel's launches are counted from 0 for each
+    of (b), (c), the simulated hosts and each worker process, and each count
+    is held to what its calls must launch.
 
 Backed h5ad inputs are not driven here: the chip machine has no ``h5py``.
 
@@ -342,21 +348,29 @@ def phase_medium():
                   f"sort-fallback columns, {len(pairs)} pairs match scipy", flush=True)
 
 
+def full_problem():
+    """The full-width counts matrix, its labels and the spot-check pairs;
+    every process that makes them makes the same."""
+    rng = np.random.default_rng(SEED + 3)
+    n_cells, n_genes, n_groups = FULL_SHAPE
+    x = poisson_counts(rng, n_cells, n_genes)
+    codes = rng.integers(1, n_groups, n_cells)
+    codes[rng.random(n_cells) < 0.1] = 0  # control group, ~10% of cells
+    labels = np.where(codes == 0, "non-targeting", np.char.add("pert_", codes.astype(str)))
+    pairs = [(str(g), int(j)) for g, j in zip(
+        np.unique(labels)[rng.integers(0, n_groups - 1, 8)], rng.integers(0, n_genes, 8)
+    )]
+    return x, labels, pairs
+
+
 def full_counts(ctx):
-    """The full-width counts matrix, labels and spot-check pairs, made once."""
+    """The full-width problem, made once for phases 5, 9 and 10."""
     if "x" not in ctx:
-        rng = np.random.default_rng(SEED + 3)
         n_cells, n_genes, n_groups = FULL_SHAPE
         t0 = time.perf_counter()
-        x = poisson_counts(rng, n_cells, n_genes)
-        codes = rng.integers(1, n_groups, n_cells)
-        codes[rng.random(n_cells) < 0.1] = 0  # control group, ~10% of cells
-        labels = np.where(codes == 0, "non-targeting", np.char.add("pert_", codes.astype(str)))
+        x, labels, pairs = full_problem()
         print(f"[5/9] data {n_cells} x {n_genes}, {n_groups} groups, "
               f"{np.mean(x == 0):.3f} zeros, made in {time.perf_counter() - t0:.1f} s", flush=True)
-        pairs = [(str(g), int(j)) for g, j in zip(
-            np.unique(labels)[rng.integers(0, n_groups - 1, 8)], rng.integers(0, n_genes, 8)
-        )]
         ctx.update(x=x, labels=labels, pairs=pairs, frames={})
     return ctx["x"], ctx["labels"], ctx["pairs"]
 
@@ -850,24 +864,32 @@ def array_adata(x, labels):
 
 def multihost_worker(address, rank, device, out) -> int:
     """One of phase 10d's two processes: its gene window of the medium
-    problem on ``device``, the gathered frame written to ``out``."""
+    problem and then of the full-width one on ``device``; the gathered
+    frames, each call's seconds and its histogram kernel launches are
+    written to ``out``."""
     from illico_tpu_torch import asymptotic_wilcoxon_multihost
+    from illico_tpu_torch.ops import hist_engine as he
     from illico_tpu_torch.parallel.multihost import initialize_distributed
 
     t0 = time.perf_counter()
     if initialize_distributed(address, 2, rank) != (2, rank):
         raise AssertionError("the process group did not come up as (2, rank)")
-    joined = time.perf_counter() - t0
-    x, labels = medium_problem()
-    frames, walls = {}, {}
-    for tag, reference in (("OVO", "g0"), ("OVR", None)):
+    record = {"joined_s": time.perf_counter() - t0}
+    for size, make, control in (("medium", medium_problem, "g0"),
+                                ("full", full_problem, "non-targeting")):
         t0 = time.perf_counter()
-        df = asymptotic_wilcoxon_multihost(
-            array_adata(x, labels), is_log1p=False, group_keys="group",
-            reference=reference, device=device)
-        walls[tag] = time.perf_counter() - t0
-        frames[tag] = df.values
-    np.savez(out, joined_s=joined, OVO_s=walls["OVO"], OVR_s=walls["OVR"], **frames)
+        x, labels = make()[:2]
+        record[f"{size}_data_s"] = time.perf_counter() - t0
+        adata = array_adata(x, labels)
+        for tag, reference in (("OVO", control), ("OVR", None)):
+            he.hist_pass.launches = 0
+            t0 = time.perf_counter()
+            df = asymptotic_wilcoxon_multihost(
+                adata, is_log1p=False, group_keys="group", reference=reference, device=device)
+            record[f"{size}_{tag}_s"] = time.perf_counter() - t0
+            record[f"{size}_{tag}_launches"] = he.hist_pass.launches
+            record[f"{size}_{tag}"] = df.values
+    np.savez(out, **record)
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -957,9 +979,48 @@ def phase_sharded(stats, ctx, worker_timeout=300):
         raise AssertionError(f"[10a] launch counter moved by {moved}, expected 5")
     del whole, total, got, want, xs
 
-    # -- 10b, 10c: the public API under a gene mesh and a cell mesh ---------
+    # The same at the shapes the cell mesh's main path gives the kernel: the
+    # two row blocks of phase 5's matrix, one full-width tile each, with the
+    # shard-local inputs of phase 5's labels.
     x, labels, pairs = full_counts(ctx)
     n_cells, n_genes, n_groups = FULL_SHAPE
+    info, layout = layout_for(labels, "non-targeting")
+    arrs = he.prepare_hist_inputs(layout, 128, False, cards[0])
+    xd = torch.from_numpy(x).to(cards[0])
+    whole = he.hist_pass(xd, arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"],
+                         is_log1p=False)
+    del xd
+    plan = build_cell_shard_plans(info, 2)
+    total = torch.zeros_like(whole)
+    shard_ms = []
+    for s, (lo, hi) in enumerate(plan.row_bounds):
+        dev = pool[s]
+        stream = pmesh._new_stream(dev)
+        args = [torch.from_numpy(a).to(dev) for a in (plan.perm[s], plan.indptr[s], plan.order[s])]
+        args.append(arrs["table"].to(dev))
+        xs = torch.from_numpy(x[lo:hi]).to(dev)
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        with pmesh.on_device(dev, stream):
+            got = he.hist_pass(xs, *args, is_log1p=False)
+            want = he.hist_pass_plain(xs, *args, is_log1p=False)
+            if stream is not None:
+                stream.synchronize()
+            worst = max(worst, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"[10a] row block {s} at full width: kernel != plain")
+            del want
+            shard_ms.append(cuda_ms(lambda: he.hist_pass(xs, *args, is_log1p=False), reps=5))
+        total += got.to(cards[0])
+        del got, xs
+    if not torch.equal(total, whole):
+        raise AssertionError("[10a] full width: summed histogram != unsharded")
+    print(f"[10a] the cell mesh's shapes ({plan.rows_per_shard} rows x {n_genes} columns per "
+          f"block, {n_groups} groups): kernel == plain on each block's own stream; sum == "
+          f"unsharded; kernel {shard_ms[0]:.3f} and {shard_ms[1]:.3f} ms per block", flush=True)
+    del whole, total
+
+    # -- 10b, 10c: the public API under a gene mesh and a cell mesh ---------
     for reference in ("non-targeting", None):
         tag = "OVO" if reference else "OVR"
         if tag not in ctx["frames"]:
@@ -967,12 +1028,13 @@ def phase_sharded(stats, ctx, worker_timeout=300):
                                               **api_kw)
     n_tiles = -(-n_genes // 2048)
     runs = {}
-    he.hist_pass.launches = 0
-    expected = 0
-    for name, devices, shard_tiles, kinds in (
-        ("10b gene mesh devices=2", 2, 2, ("host",)),
-        ("10c cell mesh devices=(2, 1)", (2, 1), 1, ("host", "CUDA tensor")),
+    launches = {}
+    for key, name, devices, shard_tiles, kinds in (
+        ("gene_mesh", "10b gene mesh devices=2", 2, 2, ("host",)),
+        ("cell_mesh", "10c cell mesh devices=(2, 1)", (2, 1), 1, ("host", "CUDA tensor")),
     ):
+        he.hist_pass.launches = 0  # this path's launches only
+        expected = 0
         for kind in kinds:
             # The matrix is on the card only while it is the input, so the
             # host-input peaks do not count it.
@@ -985,14 +1047,16 @@ def phase_sharded(stats, ctx, worker_timeout=300):
                 runs[f"{name} {tag} {kind}"] = rec
                 expected += warm_launches[devices] + 2 * n_tiles  # 2 shards per tile
             del X
-    launches = he.hist_pass.launches
-    if DEV == "cuda" and launches != expected:
-        raise AssertionError(f"[10] sharded paths launched the hist kernel {launches} times, "
-                             f"expected {expected}")
+        launches[key] = he.hist_pass.launches
+        if DEV == "cuda" and launches[key] != expected:
+            raise AssertionError(f"[{name}] launched the hist kernel {launches[key]} times, "
+                                 f"expected {expected}")
     print(f"[10b/10c] gene-mesh and cell-mesh frames equal phase 5's bit for bit, host and "
-          f"CUDA-tensor input; every shard tile took the native tail; {launches} hist kernel "
-          f"launches (per call: {warm_launches[2]} warm-up launch(es) under the gene mesh, 2 "
-          f"under the cell mesh, and one per tile and shard)", flush=True)
+          f"CUDA-tensor input; every shard tile took the native tail; hist kernel launches: "
+          f"{launches['gene_mesh']} under the gene mesh (2 calls, each {warm_launches[2]} "
+          f"warm-up launch(es) and one per tile and shard), {launches['cell_mesh']} under the "
+          f"cell mesh (4 calls, each 2 warm-up launches and one per tile and shard)",
+          flush=True)
     # The cell mesh's histogram sum alone: one shard's (G, V, T) float32
     # histogram added into the lead's (copied first when on another card).
     a = torch.zeros((n_groups, 128, min(n_genes, 2048)), dtype=torch.float32, device=cards[0])
@@ -1003,7 +1067,10 @@ def phase_sharded(stats, ctx, worker_timeout=300):
     del a, b
 
     # -- 10d: simulated hosts at full width, then two real processes --------
+    from illico_tpu_torch.parallel.multihost import host_gene_window
+
     adata = array_adata(x, labels)
+    he.hist_pass.launches = 0  # this path's launches only
     for reference in ("non-targeting", None):
         tag = "OVO" if reference else "OVR"
         t0 = time.perf_counter()
@@ -1016,13 +1083,24 @@ def phase_sharded(stats, ctx, worker_timeout=300):
         runs[f"10d simulate_multihost {tag}"] = {"wall_s": wall}
         print(f"[10d] simulate_multihost 2 hosts x 1 device {tag}: frame equals phase 5's "
               f"bit for bit, {wall:.3f} s", flush=True)
-    launches_sim = he.hist_pass.launches - launches
+    launches["multihost"] = he.hist_pass.launches
+    # Per call and host: one warm-up launch and one per tile of its window.
+    windows = [host_gene_window(n_genes, 2, h) for h in range(2)]
+    per_host = [1 + -(-(ub - lb) // 2048) for lb, ub in windows]
+    if DEV == "cuda" and launches["multihost"] != 2 * sum(per_host):
+        raise AssertionError(f"[10d] the simulated hosts launched the hist kernel "
+                             f"{launches['multihost']} times, expected {2 * sum(per_host)}")
+    print(f"[10d] simulated hosts: {launches['multihost']} hist kernel launches (2 calls x 2 "
+          f"hosts, each one warm-up launch and one per tile of its window)", flush=True)
+
     mx, mlabels = medium_problem()
     single = {
         tag: asymptotic_wilcoxon_arrays(mx, mlabels, reference=ref, progress=False, **api_kw
                                         ).values
         for tag, ref in (("OVO", "g0"), ("OVR", None))
     }
+    if DEV == "cuda":
+        torch.cuda.empty_cache()  # the two processes share this card's memory
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         address = f"127.0.0.1:{sock.getsockname()[1]}"
@@ -1052,18 +1130,33 @@ def phase_sharded(stats, ctx, worker_timeout=300):
         if proc.returncode != 0:
             raise AssertionError(f"[10d] process {r} failed ({proc.returncode}):\n"
                                  f"{logs[r][-3000:] if r < len(logs) else ''}")
-    ranks = [np.load(o) for o in outs]
-    for tag in ("OVO", "OVR"):
-        np.testing.assert_array_equal(ranks[0][tag], ranks[1][tag])
-        np.testing.assert_array_equal(ranks[0][tag], single[tag])
-    timing = {f"rank{r}": {k: float(ranks[r][k]) for k in ("joined_s", "OVO_s", "OVR_s")}
-              for r in range(2)}
-    print(f"[10d] two processes joined by gloo on {[str(d) for d in pool[:2]]}, "
-          f"{MEDIUM_SHAPE[0]} x {MEDIUM_SHAPE[1]} x {MEDIUM_SHAPE[2]}: frames identical and "
-          f"equal to the single-process frame; {wall:.2f} s from start to exit, per process "
-          f"{json.dumps(timing)}", flush=True)
-    stats["sharded"] = dict(runs=runs, launches=launches + moved + launches_sim,
-                            add_ms=add_ms, two_process_wall_s=wall, timing=timing)
+    timing, launches["multihost_processes"] = {}, []
+    for r, path in enumerate(outs):
+        with np.load(path) as rank:
+            for size, want in (("medium", single),
+                               ("full", {t: f.values for t, f in ctx["frames"].items()})):
+                for tag in ("OVO", "OVR"):
+                    # Equal to the single-process frame, so to the other rank's.
+                    np.testing.assert_array_equal(rank[f"{size}_{tag}"], want[tag])
+                    # Per call: one warm-up launch and one tile of the window.
+                    n = int(rank[f"{size}_{tag}_launches"])
+                    if DEV == "cuda" and n != 2:
+                        raise AssertionError(f"[10d] process {r}, {size} {tag}: {n} hist "
+                                             f"kernel launches, expected 2")
+            timing[f"rank{r}"] = {k: float(rank[k]) for k in rank.files if k.endswith("_s")}
+            launches["multihost_processes"].append(
+                sum(int(rank[k]) for k in rank.files if k.endswith("_launches")))
+        os.remove(path)
+    print(f"[10d] two processes joined by gloo on {[str(d) for d in pool[:2]]}, at "
+          f"{MEDIUM_SHAPE[0]} x {MEDIUM_SHAPE[1]} x {MEDIUM_SHAPE[2]} and at {n_cells} x "
+          f"{n_genes} x {n_groups} (each process makes the matrix from the seed and computes "
+          f"its {windows[0][1]}-gene window): every frame identical in both and equal to the "
+          f"single-process frame (the full-width ones to phase 5's); hist kernel launches per "
+          f"process {launches['multihost_processes']} (4 calls, each one warm-up launch and "
+          f"one tile); {wall:.2f} s from start to exit, per process {json.dumps(timing)}",
+          flush=True)
+    stats["sharded"] = dict(runs=runs, launches=launches, add_ms=add_ms,
+                            shard_kernel_ms=shard_ms, two_process_wall_s=wall, timing=timing)
     stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), worst)
 
 
@@ -1114,6 +1207,7 @@ def main() -> int:
     if 8 in phases:
         phase_wire(stats)
     print(f"phases {sorted(phases)} passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    sharded = stats.get("sharded", {}).get("launches", {})
     kernel = {
         "name": "grouped_hist",
         "route": "cuda",
@@ -1121,7 +1215,15 @@ def main() -> int:
         "replaces": "illico_tpu/ops/hist_engine.py:80",
         "launches": stats.get("launches"),
         "launches_device_input": stats.get("device_input", {}).get("launches"),
-        "launches_sharded": stats.get("sharded", {}).get("launches"),
+        # Phase 10, each path counted from 0 on its own: the gene-mesh and
+        # cell-mesh API calls and the simulated hosts (launches_sharded is
+        # their sum), then each of the two worker processes' own count.
+        "launches_sharded": sum(sharded[k] for k in ("gene_mesh", "cell_mesh", "multihost"))
+        if sharded else None,
+        "launches_gene_mesh": sharded.get("gene_mesh"),
+        "launches_cell_mesh": sharded.get("cell_mesh"),
+        "launches_multihost": sharded.get("multihost"),
+        "launches_multihost_processes": sharded.get("multihost_processes"),
         "max_abs_err": stats.get("max_abs_err"),
         "ms": stats.get("ms"),
         "plain_ms": stats.get("plain_ms"),

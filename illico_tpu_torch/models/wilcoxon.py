@@ -68,12 +68,6 @@ _COLSTAT_ROWS = 1 << 16
 # mesh adds "reduce" (the sum of the shards' histograms) after "kernel".
 DEVICE_STAGES = ("h2d", "kernel", "contract", "pack", "d2h")
 
-# Columns a gene shard's share of a tile is a multiple of: the histogram
-# kernel works in 32-column blocks, and the packed wire's widest element
-# alignment is 4 columns (ops.hist_engine.packed_width).
-_SHARD_ALIGN = {"hist": 32}
-_SHARD_ALIGN_DEFAULT = 4
-
 
 @dataclasses.dataclass
 class RunResult:
@@ -302,8 +296,11 @@ class WilcoxonRunner:
             auto_width=self._auto_tile_width(),
         )
         if mesh is not None:
-            # Every gene shard gets an equal, aligned share of a tile.
-            align = n_gene_shards * _SHARD_ALIGN.get(engine, _SHARD_ALIGN_DEFAULT)
+            # Every gene shard gets an equal, aligned share of a tile: the
+            # histogram kernel works in 32-column blocks, and the packed
+            # wire's widest element alignment is 4 columns
+            # (ops.hist_engine.packed_width).
+            align = n_gene_shards * (32 if engine == "hist" else 4)
             if self.tile_width % align:
                 self.tile_width = -(-self.tile_width // align) * align
                 self.bounds = [

@@ -28,7 +28,6 @@ from illico_tpu_torch.parallel.mesh import (
     DeviceMesh,
     Shard,
     _canonical,
-    _dense_precompile,
     _new_stream,
     _sharded,
     make_gene_mesh,
@@ -150,42 +149,41 @@ def build_cell_shard_plans(info, n_shards: int) -> CellShardPlan:
 
 def _summed_hist_fn(local_args, devices, streams, is_log1p: bool):
     """``fn(blocks, mark)``: the histogram of each row block on its own
-    device and stream, summed on the lead (``devices[0]``).
+    device and stream, summed on the lead (``devices[0]``) in the lead's
+    stream.
 
-    Ordering between streams: a shard's histogram reaches the lead through a
-    copy enqueued on the shard's own stream (so it follows the kernel, and
-    the source block is freed in that stream's order), an event recorded
-    behind it is what the lead's stream waits for before the add, and a
-    histogram that shares the lead's device is marked as in use by the
+    Ordering between streams.  A histogram on another card is copied to the
+    lead from the source shard's context: torch runs such a copy on the
+    source's stream (so it follows the kernel, and the source block is freed
+    in that stream's order) and fences it both ways against the
+    destination's current stream, here the lead's.  So the copy starts only
+    after what the lead's stream already holds (its own kernel, earlier
+    adds), and the lead's stream goes on only after the copy: the add needs
+    no event of its own.  A histogram of a logical shard on the lead's own
+    device is not copied: an event recorded behind its kernel is what the
+    lead's stream waits for, and the histogram is marked as in use by the
     lead's stream until the add has run.
     """
     from illico_tpu_torch.ops.hist_engine import hist_pass
 
     lead, lead_stream = devices[0], streams[0]
-    cuda = lead.type == "cuda"
 
     def fn(blocks, mark=None):
         with on_device(lead, lead_stream):
             total = hist_pass(blocks[0], *local_args[0], is_log1p=is_log1p)
             if mark is not None:
                 mark("kernel")  # the lead's own pass; the others' end in "reduce"
-        incoming = []
-        for x, args, dev, stream in zip(blocks[1:], local_args[1:], devices[1:], streams[1:]):
-            with on_device(dev, stream):
-                h = hist_pass(x, *args, is_log1p=is_log1p)
-                if dev != lead:
-                    with on_device(lead, lead_stream):
+            for x, args, dev, stream in zip(blocks[1:], local_args[1:], devices[1:],
+                                            streams[1:]):
+                with on_device(dev, stream):
+                    h = hist_pass(x, *args, is_log1p=is_log1p)
+                    if dev != lead:
                         h = h.to(lead, non_blocking=True)
-                ready = None
-                if cuda:
-                    ready = torch.cuda.Event()
-                    ready.record(torch.cuda.current_stream(dev))
-            incoming.append((h, ready))
-        with on_device(lead, lead_stream):
-            for h, ready in incoming:
-                if ready is not None:
-                    torch.cuda.current_stream(lead).wait_event(ready)
-                    h.record_stream(torch.cuda.current_stream(lead))
+                    elif stream is not None:
+                        ready = torch.cuda.Event()
+                        ready.record(stream)
+                        lead_stream.wait_event(ready)
+                        h.record_stream(lead_stream)
                 total += h
             if mark is not None:
                 mark("reduce")
@@ -262,5 +260,4 @@ def make_cell_sharded_hist_fn(
         shards.append(Shard(fn, devices, streams, counters, row_bounds=plan.row_bounds))
     run = _sharded(mesh, shards, counters)
     run._plan = plan
-    run.precompile = _dense_precompile(run)
     return run

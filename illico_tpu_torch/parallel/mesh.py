@@ -213,15 +213,6 @@ def _gene_shards(mesh: DeviceMesh, make_fn):
     return _sharded(mesh, shards, counters)
 
 
-def _dense_precompile(run):
-    def precompile(shape, dtype) -> None:
-        """Warm every distinct device up on a zero tile of the per-shard
-        ``shape`` (rows, columns) and torch ``dtype``."""
-        warm_shards(run.shards, lambda s: s.zeros(int(shape[0]), int(shape[1]), dtype))
-
-    return precompile
-
-
 def make_sharded_tile_fn(layout, mesh: DeviceMesh, *, ref_code: int, is_log1p: bool,
                          pack: bool = True):
     """Sort-engine tile function sharded over the gene axis of ``mesh``:
@@ -229,10 +220,8 @@ def make_sharded_tile_fn(layout, mesh: DeviceMesh, *, ref_code: int, is_log1p: b
     on device ``j``."""
     from illico_tpu_torch.ops.rank_engine import make_tile_fn
 
-    run = _gene_shards(mesh, lambda dev: make_tile_fn(
+    return _gene_shards(mesh, lambda dev: make_tile_fn(
         layout, ref_code=ref_code, is_log1p=is_log1p, device=dev, pack=pack))
-    run.precompile = _dense_precompile(run)
-    return run
 
 
 def make_sharded_hist_fn(
@@ -254,12 +243,10 @@ def make_sharded_hist_fn(
     from illico_tpu_torch.ops.hist_engine import DEFAULT_V, make_hist_tile_fn
 
     v_buckets = DEFAULT_V if v_buckets is None else v_buckets
-    run = _gene_shards(mesh, lambda dev: make_hist_tile_fn(
+    return _gene_shards(mesh, lambda dev: make_hist_tile_fn(
         layout, ref_code=ref_code, is_log1p=is_log1p, device=dev,
         v_buckets=v_buckets, fc_u8_hint=fc_u8_hint, nnz_split_hint=nnz_split_hint,
         pack=pack))
-    run.precompile = _dense_precompile(run)
-    return run
 
 
 def make_sharded_csort_fn(group_info, mesh: DeviceMesh, *, ref_code: int, is_log1p: bool,
@@ -270,12 +257,5 @@ def make_sharded_csort_fn(group_info, mesh: DeviceMesh, *, ref_code: int, is_log
     devices."""
     from illico_tpu_torch.ops.csort_engine import make_csort_tile_fn
 
-    run = _gene_shards(mesh, lambda dev: make_csort_tile_fn(
+    return _gene_shards(mesh, lambda dev: make_csort_tile_fn(
         group_info, ref_code=ref_code, is_log1p=is_log1p, device=dev, pack=pack))
-
-    def precompile(tile) -> None:
-        """Warm every distinct device up on ``tile`` (a host CompactTile)."""
-        warm_shards(run.shards, lambda s: tile)
-
-    run.precompile = precompile
-    return run
