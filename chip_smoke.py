@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,8    # build, then the wire on the card
     python3 chip_smoke.py --phases 1,5,9  # counts at full width, host and device input
     python3 chip_smoke.py --phases 1,5,9,10  # the same, then sharded and multi-process
+    python3 chip_smoke.py --phases 1,11   # repaired tile widths, then 8,000 genes
 
 Phases, each printing its own lines:
 
@@ -76,7 +77,24 @@ Phases, each printing its own lines:
     1,024-gene window), their frames identical and equal to the
     single-process frame.  The kernel's launches are counted from 0 for each
     of (b), (c), the simulated hosts and each worker process, and each count
-    is held to what its calls must launch.
+    is held to what its calls must launch;
+11. (a) tiles and gene shards whose widths round up to the same packed
+    width: phase 4's population (20,000 cells, 50 groups) at 2,046 genes
+    with ``engine="hist"`` and ``batch_size=1024`` (tiles of 1,024 and
+    1,022 columns), OVO and OVR, on ``cuda:0``, with ``devices=2`` (shards
+    of 512 and 510) and ``devices=(2, 1)``, logical shards on ``cuda:0``,
+    each frame held to the same call with ``device="cpu"`` (U equal, p rtol
+    1e-12, fc rtol 1e-6), every tile native; then one OVO call at 20,000 x
+    8,190 with every default (four auto tiles, the last 2,046 columns)
+    against scipy; (c) the published
+    width: one OVO call at 300,000 cells x 8,000 genes x 2,000 groups
+    (control ~10%, ~90% zeros), the matrix made on the card from a seeded
+    ``torch.Generator`` (9.6 GB float32), ``engine="auto"`` (four hist
+    tiles, the last 1,856 columns), 50 sampled (group, gene) pairs against
+    ``scipy.stats.mannwhitneyu``, wall, stages and peak device memory, K1's
+    time on one full 2,048-column tile and K1 against its plain version on
+    the last tile.  Each call's kernel launches are counted from 0 and held
+    to the warm-up's and one per tile and shard.
 
 Backed h5ad inputs are not driven here: the chip machine has no ``h5py``.
 
@@ -296,12 +314,17 @@ def phase_sort():
 
 
 def scipy_check(tag, df, x, labels, ref, is_log1p, pairs):
-    """U exact, p rtol 1e-12, fc rtol 1e-6 against scipy on (group, gene) pairs."""
+    """U exact, p rtol 1e-12, fc rtol 1e-6 against scipy on (group, gene)
+    pairs; ``x`` is the matrix or a dict of its columns by gene."""
     from scipy import sparse
     from scipy.stats import mannwhitneyu
 
     for grp, j in pairs:
-        col = (x[:, j].toarray().ravel() if sparse.issparse(x) else x[:, j]).astype(np.float64)
+        if isinstance(x, dict):  # gene -> host copy of its column
+            col = x[j]
+        else:
+            col = x[:, j].toarray().ravel() if sparse.issparse(x) else x[:, j]
+        col = col.astype(np.float64)
         tgt = col[labels == grp]
         rest = col[labels == ref] if ref is not None else col[labels != grp]
         u, p = mannwhitneyu(rest, tgt, method="asymptotic", use_continuity=True,
@@ -314,6 +337,17 @@ def scipy_check(tag, df, x, labels, ref, is_log1p, pairs):
             raise AssertionError(f"{tag} ({grp}, {j}): U {row.statistic} != scipy {u}")
         np.testing.assert_allclose(row.p_value, p, rtol=1e-12, atol=0, err_msg=f"{tag} p ({grp}, {j})")
         np.testing.assert_allclose(row.fold_change, fc, rtol=1e-6, err_msg=f"{tag} fc ({grp}, {j})")
+
+
+def frames_close(tag, got, want):
+    """U bit for bit, p within rtol 1e-12, fc within rtol 1e-6."""
+    if not got.index.equals(want.index):
+        raise AssertionError(f"{tag}: index differs")
+    np.testing.assert_array_equal(got.statistic.values, want.statistic.values, err_msg=tag)
+    np.testing.assert_allclose(got.p_value.values, want.p_value.values, rtol=1e-12, atol=0,
+                               err_msg=tag)
+    np.testing.assert_allclose(got.fold_change.values, want.fold_change.values, rtol=1e-6,
+                               err_msg=tag)
 
 
 def phase_medium():
@@ -598,9 +632,7 @@ def phase_normalized(stats, n_cells=300_000, n_genes=2048, n_groups=2000, width=
                     [(g, j) for g, j in pairs if g != reference])
         frames[tag] = df
     a, b = frames["OVO engine=auto"], frames["OVO engine=sort"]
-    np.testing.assert_array_equal(a.statistic.values, b.statistic.values)
-    np.testing.assert_allclose(a.p_value.values, b.p_value.values, rtol=1e-12, atol=0)
-    np.testing.assert_allclose(a.fold_change.values, b.fold_change.values, rtol=1e-6)
+    frames_close("[7] csort vs sort", a, b)
     print("[7] csort == sort on the whole OVO frame; scipy spot checks pass", flush=True)
 
     # One full csort tile: host compaction alone, then its device side
@@ -1160,9 +1192,185 @@ def phase_sharded(stats, ctx, worker_timeout=300):
     stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), worst)
 
 
+WIDTHS_SHAPE = (20_000, 8190, 50)  # cells, genes, groups of phase 11a
+PUBLISHED_SHAPE = (300_000, 8000, 2000)  # K562-essential at its published width
+
+
+def sync():
+    if DEV == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def widths_problem():
+    """Phase 4's population (20,000 cells, 50 groups, 30% nonzero counts)
+    at 8,190 genes; phase 11a takes its first 2,046."""
+    rng = np.random.default_rng(SEED + 8)
+    n_cells, n_genes, n_groups = WIDTHS_SHAPE
+    x = poisson_counts(rng, n_cells, n_genes, density=0.3)
+    labels = np.char.add("g", rng.integers(0, n_groups, n_cells).astype(str))
+    pairs = [(g, int(j)) for g, j in zip(
+        np.char.add("g", rng.integers(1, n_groups, 12).astype(str)),
+        np.concatenate([[2047, 4095, 6143, 8189], rng.integers(0, n_genes, 8)]),
+    )]
+    return x, labels, pairs
+
+
+def phase_widths(stats):
+    """11a: tiles and shards whose widths pack to the same byte count."""
+    from illico_tpu_torch import asymptotic_wilcoxon_arrays
+    from illico_tpu_torch.ops import hist_engine as he
+
+    x, labels, pairs = widths_problem()
+    x2046 = np.ascontiguousarray(x[:, :2046])
+    # (tag, devices, K1 launches: the warm-up's and one per tile and shard)
+    runs = (("one device", None, 1 + 2), ("devices=2", 2, 1 + 4),
+            ("devices=(2, 1)", (2, 1), 2 + 2 * 2))
+    launches = {}
+    for reference in ("g0", None):
+        mode = "OVO" if reference else "OVR"
+        for tag, devices, expected in runs:
+            kw = dict(reference=reference, engine="hist", batch_size=1024, devices=devices,
+                      progress=False)
+            want = asymptotic_wilcoxon_arrays(x2046, labels, device="cpu", **kw)
+            sync()
+            he.hist_pass.launches = 0
+            got = asymptotic_wilcoxon_arrays(x2046, labels, device=f"{DEV}:0"
+                                             if DEV == "cuda" else DEV, **kw)
+            sync()
+            n = launches[f"{mode} {tag}"] = he.hist_pass.launches
+            require_native(f"[11a] {mode} {tag}", got)
+            frames_close(f"[11a] {mode} {tag}", got, want)
+            if DEV == "cuda" and n != expected:
+                raise AssertionError(f"[11a] {mode} {tag}: {n} hist kernel launches, "
+                                     f"expected {expected}")
+            print(f"[11a] {mode} {x.shape[0]} x 2046 x {WIDTHS_SHAPE[2]}, batch_size=1024, "
+                  f"{tag}: frame equals "
+                  f"the CPU frame (U equal, p rtol 1e-12, fc rtol 1e-6); "
+                  f"{got.attrs['consume_path']['native']} tiles all native; {n} hist kernel "
+                  f"launches", flush=True)
+    sync()
+    he.hist_pass.launches = 0
+    t0 = time.perf_counter()
+    df = asymptotic_wilcoxon_arrays(x, labels, reference="g0", progress=False,
+                                    **({} if DEV == "cuda" else {"device": DEV}))
+    wall = time.perf_counter() - t0
+    n = launches["OVO 8190 defaults"] = he.hist_pass.launches
+    require_native("[11a] 8,190 genes", df)
+    if df.attrs["engine"] != "hist" or df.attrs["consume_path"]["native"] != 4:
+        raise AssertionError(f"[11a] 8,190 genes: engine {df.attrs['engine']}, consume "
+                             f"path {df.attrs['consume_path']}, expected 4 hist tiles")
+    if DEV == "cuda" and n != 1 + 4:
+        raise AssertionError(f"[11a] 8,190 genes: {n} hist kernel launches, expected 5")
+    scipy_check("[11a] 8,190 genes", df, x, labels, "g0", False, pairs)
+    print(f"[11a] OVO {x.shape[0]} x {x.shape[1]} x {WIDTHS_SHAPE[2]} with every default: "
+          f"4 tiles (the last 2046 columns), all native, {n} hist kernel launches, "
+          f"{len(pairs)} pairs match scipy; "
+          f"{wall:.3f} s", flush=True)
+    stats["widths"] = dict(launches=launches, wall_8190_s=wall)
+
+
+def device_counts(n_cells, n_genes, density=0.1, seed=SEED + 9):
+    """float32 counts made on the device from a seeded ``torch.Generator``:
+    ~(1 - density) zeros, nonzeros 1 + Poisson(lam_gene), lam_gene in
+    [0.5, 5)."""
+    import torch
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    lam = 0.5 + 4.5 * torch.rand(n_genes, generator=gen, device=DEV)
+    x = torch.empty((n_cells, n_genes), dtype=torch.float32, device=DEV)
+    for j0 in range(0, n_genes, 256):
+        j1 = min(j0 + 256, n_genes)
+        nz = torch.rand((n_cells, j1 - j0), generator=gen, device=DEV) < density
+        vals = 1.0 + torch.poisson(lam[j0:j1].expand(n_cells, j1 - j0), generator=gen)
+        x[:, j0:j1] = torch.where(nz, vals, 0.0)
+    return x
+
+
+def phase_published(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
+    """11c: one OVO call at the published width, on a CUDA tensor."""
+    import torch
+
+    from illico_tpu_torch import asymptotic_wilcoxon_arrays
+    from illico_tpu_torch.ops import hist_engine as he
+
+    n_cells, n_genes, n_groups = shape
+    rng = np.random.default_rng(SEED + 9)
+    t0 = time.perf_counter()
+    xd = device_counts(n_cells, n_genes)
+    codes = rng.integers(1, n_groups, n_cells)
+    codes[rng.random(n_cells) < 0.1] = 0
+    labels = np.where(codes == 0, "non-targeting", np.char.add("pert_", codes.astype(str)))
+    sync()
+    zeros = 1.0 - float((xd != 0).sum()) / xd.numel()
+    print(f"[11c] data {n_cells} x {n_genes} float32 made on {xd.device} "
+          f"({xd.numel() * 4 / 1e9:.2f} GB), {n_groups} groups, {zeros:.3f} zeros, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    he.hist_pass.launches = 0
+    t0 = time.perf_counter()
+    df = asymptotic_wilcoxon_arrays(xd, labels, reference="non-targeting", progress=False,
+                                    **({} if DEV == "cuda" else {"device": DEV}))
+    wall = time.perf_counter() - t0
+    launches = he.hist_pass.launches
+    n_tiles = -(-n_genes // 2048)
+    rec = {
+        "wall_s": wall, "tests_per_s": n_groups * n_genes / wall,
+        "engine": df.attrs["engine"], "consume_path": df.attrs["consume_path"],
+        "stage_s": df.attrs["stage_seconds"], "launches": launches,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None,
+    }
+    print(f"[11c] OVO {n_cells} x {n_genes} x {n_groups}, CUDA tensor, engine=auto: "
+          f"{json.dumps(rec)}", flush=True)
+    if df.attrs["engine"] != "hist" or df.shape != (n_groups * n_genes, 3):
+        raise AssertionError(f"[11c] engine {df.attrs['engine']}, shape {df.shape}")
+    if not np.isfinite(df.p_value.values).all():
+        raise AssertionError("[11c] non-finite p-values")
+    require_native("[11c]", df)
+    if df.attrs["consume_path"]["native"] != n_tiles:
+        raise AssertionError(f"[11c] {df.attrs['consume_path']} tiles, expected {n_tiles}")
+    if DEV == "cuda" and launches != 1 + n_tiles:
+        raise AssertionError(f"[11c] {launches} hist kernel launches, expected {1 + n_tiles}")
+    groups = np.unique(labels[labels != "non-targeting"])
+    pairs = [(str(g), int(j)) for g, j in zip(
+        groups[rng.integers(0, groups.size, n_pairs)],
+        np.concatenate([[n_genes - 1], rng.integers(0, n_genes, n_pairs - 1)]),
+    )]
+    genes = sorted({j for _, j in pairs})
+    host = xd[:, genes].cpu().numpy()
+    scipy_check("[11c]", df, {j: host[:, i] for i, j in enumerate(genes)}, labels,
+                "non-targeting", False, pairs)
+    print(f"[11c] {len(pairs)} sampled (group, gene) pairs match scipy.stats.mannwhitneyu "
+          f"on host copies of their columns", flush=True)
+
+    # K1 alone on the call's tiles: a full 2,048-column one, timed, and the
+    # short last one held against its plain version.
+    info, layout = layout_for(labels, "non-targeting")
+    arrs = he.prepare_hist_inputs(layout, 128, False, DEV)
+    args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
+    full = xd[:, :2048].contiguous()
+    ms = cuda_ms(lambda: he.hist_pass(full, *args, is_log1p=False), reps=10) \
+        if DEV == "cuda" else None
+    del full
+    last = xd[:, (n_tiles - 1) * 2048:].contiguous()
+    got = he.hist_pass(last, *args, is_log1p=False)
+    want = he.hist_pass_plain(last, *args, is_log1p=False)
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"[11c] kernel != plain on the last tile: max |diff| {err}")
+    print(f"[11c] hist kernel on one full 2,048-column tile: {ms} ms (mean of 10); on the "
+          f"last {last.shape[1]}-column tile kernel == plain", flush=True)
+    del got, want, last, xd
+    stats["published"] = dict(rec, kernel_ms=ms)
+    stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), err)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
     parser.add_argument("--multihost-worker", nargs=4, help=argparse.SUPPRESS,
                         metavar=("ADDRESS", "RANK", "DEVICE", "OUT"))
     args = parser.parse_args()
@@ -1206,6 +1414,9 @@ def main() -> int:
         phase_normalized(stats)
     if 8 in phases:
         phase_wire(stats)
+    if 11 in phases:
+        phase_widths(stats)
+        phase_published(stats)
     print(f"phases {sorted(phases)} passed in {time.perf_counter() - t0:.1f} s", flush=True)
     sharded = stats.get("sharded", {}).get("launches", {})
     kernel = {
@@ -1224,6 +1435,11 @@ def main() -> int:
         "launches_cell_mesh": sharded.get("cell_mesh"),
         "launches_multihost": sharded.get("multihost"),
         "launches_multihost_processes": sharded.get("multihost_processes"),
+        # Phase 11, each call counted from 0: 11a per call, 11c's call at
+        # the published width.
+        "launches_repaired_widths": stats.get("widths", {}).get("launches"),
+        "launches_published_width": stats.get("published", {}).get("launches"),
+        "ms_published_width": stats.get("published", {}).get("kernel_ms"),
         "max_abs_err": stats.get("max_abs_err"),
         "ms": stats.get("ms"),
         "plain_ms": stats.get("plain_ms"),

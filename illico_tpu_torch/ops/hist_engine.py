@@ -653,17 +653,21 @@ def make_hist_tile_fn(
     contract_kw = {k: v for k, v in statics.items() if k != "compute_fc"}
     contract_kw["n_pad"] = float(layout.n_pad)
     narrow = _narrow_map(statics)
-    spec_cache: dict[int, list] = {}  # tile width -> pack spec
+    # Packed width -> pack spec: tiles whose widths round up to the same
+    # packed width (a full tile and a short last one, a shard and its
+    # warm-up) share one layout, so they share one spec.
+    spec_cache: dict[int, list] = {}
     find_spec, match = spec_lookup(spec_cache)
     real_counts = real_rows_per_group(layout)
 
     def _spec_for(t_cols: int):
-        if t_cols not in spec_cache:
-            abstract = hist_contract_abstract(layout.n_groups, packed_width(t_cols), statics)
+        width = packed_width(t_cols)
+        if width not in spec_cache:
+            abstract = hist_contract_abstract(layout.n_groups, width, statics)
             spec = build_pack_spec(abstract, narrow)
-            assert_spec_size_unique(spec_cache, t_cols, spec)
-            spec_cache[t_cols] = spec
-        return spec_cache[t_cols]
+            assert_spec_size_unique(spec_cache, width, spec)
+            spec_cache[width] = spec
+        return spec_cache[width]
 
     def unpack(buf) -> dict:
         """Standard contract dict (numpy) of a packed host buffer."""

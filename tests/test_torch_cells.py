@@ -276,3 +276,46 @@ def test_cells_devices_tuple_validation(problem, devices, match):
     x, labels = problem
     with pytest.raises(ValueError, match=match):
         _port(x, _groups(labels), reference="p0", devices=devices)
+
+
+# -- unequal tiles ---------------------------------------------------------------------
+
+
+def _unpacked(fn, buf):
+    """A hist shard's unpacked dict, split rows patched back, as float64."""
+    got = {k: np.asarray(v, np.float64) for k, v in fn.unpack(buf).items()}
+    st = fn._statics
+    for key, split, col in (("fc_sums", "fc_split_code", "fc_split_col"),
+                            ("R2", "u2_split_code", "r2_split_col")):
+        if st.get(split, -1) >= 0 and key in got:
+            got[key][st[split]] = got[col]
+    return got
+
+
+@pytest.mark.parametrize("widths", [(32, 30), (1024, 1022)])
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)])
+def test_cell_sharded_unequal_tiles_unpack_to_their_own_dicts(problem, shape, widths):
+    """A full tile and then a short last one through the same cell-sharded
+    gene shards (2,046 genes at batch_size=1024 and devices=(2, 1), or a
+    30-column shard after its 32-column warm-up): the widths pack to the
+    same byte count, and each buffer unpacks to its own statistics."""
+    x, labels = problem
+    x = np.tile(x, (1, 8))[:, : shape[1] * widths[0]]
+    _, info = encode_and_count_groups(labels, 0)
+    layout = build_padded_layout(info.perm, info.indptr)
+    kw = dict(ref_code=info.ref_code, is_log1p=False)
+    single = he.make_hist_tile_fn(layout, device=CPU, pack=False, **kw)
+    plan = build_cell_shard_plans(info, shape[0])
+    run = make_cell_sharded_hist_fn(layout, plan, make_mesh_2d(*shape, devices=CPU8), **kw)
+    sizes = set()
+    for w in widths:
+        cols = [(j * widths[0], j * widths[0] + w) for j in range(shape[1])]
+        tiles = [[torch.from_numpy(np.ascontiguousarray(x[lo:hi, a:b]))
+                  for lo, hi in plan.row_bounds] for a, b in cols]
+        for (a, b), buf, shard in zip(cols, run(tiles), run.shards):
+            sizes.add(buf.numel())
+            got = _unpacked(shard.fn, buf.numpy())
+            for key, want in single(torch.from_numpy(np.ascontiguousarray(x[:, a:b]))).items():
+                np.testing.assert_array_equal(got[key][..., :w],
+                                              want.numpy().astype(np.float64), err_msg=key)
+    assert len(sizes) == 1

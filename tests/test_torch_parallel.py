@@ -363,3 +363,43 @@ def test_device_tile_cap_counts_what_each_device_holds(problem, monkeypatch):
     assert cap(make_mesh_2d(2, 1, devices=[a, b])) == int(usable / (2 * hist_col + half))
     monkeypatch.setattr(runner_mod, "device_free_bytes", lambda dev: None)
     assert cap(None) is None
+
+
+# -- unequal shards ------------------------------------------------------------
+
+
+def _unpacked(fn, buf):
+    """A hist shard's unpacked dict, split rows patched back, as float64."""
+    got = {k: np.asarray(v, np.float64) for k, v in fn.unpack(buf).items()}
+    st = fn._statics
+    for key, split, col in (("fc_sums", "fc_split_code", "fc_split_col"),
+                            ("R2", "u2_split_code", "r2_split_col")):
+        if st.get(split, -1) >= 0 and key in got:
+            got[key][st[split]] = got[col]
+    return got
+
+
+@pytest.mark.parametrize("widths", [(32, 30), (1024, 1022)])
+@pytest.mark.parametrize("reference", [0, None], ids=["ovo", "ovr"])
+def test_sharded_hist_unequal_shards_unpack_to_their_own_dicts(problem, reference, widths):
+    """Two gene shards on one device share its tile function: shards whose
+    widths pack to the same byte count (the last tile's shards of 2,046
+    genes at devices=2, or a 30-column shard after its 32-column warm-up)
+    each unpack to their own statistics."""
+    x, labels = problem
+    x = np.tile(x, (1, 8))[:, : sum(widths)]
+    _, info = encode_and_count_groups(labels, reference)
+    layout = build_padded_layout(info.perm, info.indptr)
+    kw = dict(ref_code=info.ref_code, is_log1p=False)
+    run = pmesh.make_sharded_hist_fn(layout, pmesh.make_gene_mesh(2, devices=CPU8), **kw)
+    assert run.shards[0].fn is run.shards[1].fn
+    single = he.make_hist_tile_fn(layout, device=CPU, pack=False, **kw)
+    bounds = [(0, widths[0]), (widths[0], sum(widths))]
+    tiles = [torch.from_numpy(np.ascontiguousarray(x[:, lb:ub])) for lb, ub in bounds]
+    outs = run(tiles)
+    assert outs[0].numel() == outs[1].numel()
+    for (lb, ub), buf, shard, tile in zip(bounds, outs, run.shards, tiles):
+        got = _unpacked(shard.fn, buf.numpy())
+        for key, want in single(tile).items():
+            np.testing.assert_array_equal(got[key][..., : ub - lb],
+                                          want.numpy().astype(np.float64), err_msg=key)

@@ -455,7 +455,8 @@ def test_hist_tile_fn_packed_width_and_unpack(mode):
     marks = []
     buf = fn(torch.from_numpy(x), marks.append).numpy()
     assert marks == ["kernel", "contract"]
-    assert buf.size == wire.spec_total_bytes(fn._spec_cache[15])
+    assert list(fn._spec_cache) == [16]  # keyed by the packed width
+    assert buf.size == wire.spec_total_bytes(fn._spec_cache[16])
     assert fn.find_spec(buf.size)["overflow_cols"][0] == (16,)
     got = fn.unpack(buf)
     plain = the.make_hist_tile_fn(
@@ -472,6 +473,50 @@ def test_hist_tile_fn_packed_width_and_unpack(mode):
             np.asarray(got[k], np.float64)[..., :15], w.numpy().astype(np.float64), err_msg=k
         )
     assert not got["overflow_cols"][15:].any()
+
+
+def _unpacked(fn, buf):
+    """A hist tile function's unpacked dict with the split rows patched back
+    into ``fc_sums`` and ``R2``, as float64."""
+    got = {k: np.asarray(v) for k, v in fn.unpack(buf).items()}
+    st = fn._statics
+    for key, split, col in (("fc_sums", "fc_split_code", "fc_split_col"),
+                            ("R2", "u2_split_code", "r2_split_col")):
+        if st[split] >= 0 and key in got:
+            got[key] = got[key].astype(np.float64)
+            got[key][st[split]] = got[col]
+    return got
+
+
+@pytest.mark.parametrize("widths", [(2048, 2046), (1024, 1022)], ids=["2048_2046", "1024_1022"])
+@pytest.mark.parametrize("mode", ["ovo", "ovr", "nnz_split"])
+def test_hist_tiles_whose_widths_pack_equal_unpack_to_their_own_dicts(widths, mode):
+    """A full tile and a short last one whose widths round up to the same
+    packed width share one spec (the cache is keyed by the packed width),
+    pack to the same byte count, and each unpacks to its own statistics,
+    with zero pad columns."""
+    rng = np.random.RandomState(9)
+    sizes = {"ovo": (300, 40, 30, 20), "ovr": (300, 40, 30, 20),
+             "nnz_split": (4000, 60, 50, 40)}[mode]
+    _, tlayout, info = _layouts_from_sizes(sizes, None if mode == "ovr" else 0)
+    x = rng.poisson(0.5, (sum(sizes), widths[0])).astype(np.float32)
+    kw = dict(ref_code=info.ref_code, is_log1p=False, device=CPU)
+    fn = the.make_hist_tile_fn(tlayout, **kw)
+    plain_fn = the.make_hist_tile_fn(tlayout, pack=False, **kw)
+    assert fn._statics["nnz_split"] is (mode == "nnz_split")
+    tiles = {w: torch.from_numpy(np.ascontiguousarray(x[:, :w])) for w in widths}
+    bufs = {w: fn(tiles[w]).numpy() for w in widths}
+    assert list(fn._spec_cache) == [the.packed_width(widths[1])] == [widths[0]]
+    assert bufs[widths[0]].size == bufs[widths[1]].size
+    for w in widths:
+        got = _unpacked(fn, bufs[w])
+        assert not got["overflow_cols"].any()
+        for k, want in plain_fn(tiles[w]).items():
+            g = np.asarray(got[k], np.float64)[..., :w]
+            np.testing.assert_array_equal(g, want.numpy().astype(np.float64), err_msg=k)
+        # On the wire the pad columns are zero.
+        for k, v in wire.unpack_host_buffer(bufs[w], fn._spec_cache[widths[0]]).items():
+            assert v.shape[-1] == widths[0] and not v[..., w:].any(), k
 
 
 # -- packed rank and csort wires ---------------------------------------------------
