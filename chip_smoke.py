@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,5,9  # counts at full width, host and device input
     python3 chip_smoke.py --phases 1,5,9,10  # the same, then sharded and multi-process
     python3 chip_smoke.py --phases 1,11   # repaired tile widths, then 8,000 genes
+    python3 chip_smoke.py --phases 1,12   # heavy-tailed counts at 8,000 genes, V=512
 
 Phases, each printing its own lines:
 
@@ -94,7 +95,24 @@ Phases, each printing its own lines:
     ``scipy.stats.mannwhitneyu``, wall, stages and peak device memory, K1's
     time on one full 2,048-column tile and K1 against its plain version on
     the last tile.  Each call's kernel launches are counted from 0 and held
-    to the warm-up's and one per tile and shard.
+    to the warm-up's and one per tile and shard;
+12. heavy-tailed raw counts at the published width (300,000 cells x 8,000
+    genes x 2,000 groups): Poisson-lognormal counts made on the card from a
+    seeded ``torch.Generator`` (~90% zeros, a few percent of the genes with
+    a count past 511, the largest table's last value), OVO through
+    ``engine="auto"``: (a) on the CUDA tensor: the histogram engine at V=512,
+    every column with a count past 511 (and only those) in the sort
+    fallback, their share within ``FALLBACK_BAND``, every tile native, K1
+    launched by the warm-up and once per tile, 50 pairs against scipy (15 on
+    fallback columns, 15 on columns whose maximum is in 128-510); (d) K1
+    alone on one full 2,048-column tile at V=256 and V=512, bit for bit
+    against its plain version, timed beside its byte bound, its plain
+    version and ``torch.bincount``; (b) the same counts as an in-RAM scipy
+    CSR (float32 data, int32 indices) with the default host tile budget:
+    the frame equals (a)'s bit for bit, the same fallback columns, and one
+    tile fetch and one fallback chunk's fetch timed alone; (c) numpy float32
+    ``log1p`` of that CSR's data: U and p equal (a)'s bit for bit, the same
+    fallback columns, fold change against float64 numpy on the 50 pairs.
 
 Backed h5ad inputs are not driven here: the chip machine has no ``h5py``.
 
@@ -167,17 +185,18 @@ def layout_for(labels, ref=None):
 
 # --------------------------------------------------------------------------
 @contextlib.contextmanager
-def tail_threads(n):
-    """``ILLICO_TPU_TAIL_THREADS`` set to ``n`` inside the block."""
-    old = os.environ.get("ILLICO_TPU_TAIL_THREADS")
-    os.environ["ILLICO_TPU_TAIL_THREADS"] = str(n)
+def environ(name, value):
+    """The environment variable ``name`` set to ``value`` inside the block,
+    or unset there when ``value`` is None."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = str(value)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["ILLICO_TPU_TAIL_THREADS"]
-        else:
-            os.environ["ILLICO_TPU_TAIL_THREADS"] = old
+        os.environ.pop(name, None)
+        if old is not None:
+            os.environ[name] = old
 
 
 @contextlib.contextmanager
@@ -331,7 +350,8 @@ def scipy_check(tag, df, x, labels, ref, is_log1p, pairs):
                             alternative="two-sided")
         if is_log1p:
             tgt, rest = np.expm1(tgt), np.expm1(rest)
-        fc = tgt.mean() / rest.mean()
+        # The packages' fold change is +inf where the reference mean is 0.
+        fc = tgt.mean() / rest.mean() if rest.mean() != 0 else np.inf
         row = df.loc[(str(grp), f"gene_{j}")]
         if row.statistic != u:
             raise AssertionError(f"{tag} ({grp}, {j}): U {row.statistic} != scipy {u}")
@@ -451,7 +471,6 @@ def phase_full(stats, ctx):
     # One auto tile of 2048 columns: lift the host budget for in-flight
     # tiles (default 8 GiB at most) so it does not split the tile in two.
     os.environ["ILLICO_TPU_HOST_BUDGET"] = str(16 << 30)
-    n_cells, n_genes, n_groups = FULL_SHAPE
     x, labels, pairs = full_counts(ctx)
     cores = os.cpu_count() or 1
     torch.cuda.synchronize()
@@ -460,7 +479,7 @@ def phase_full(stats, ctx):
     for threads in (1, cores):
         for reference in ("non-targeting", None):
             tag = "OVO" if reference else "OVR"
-            with tail_threads(threads):
+            with environ("ILLICO_TPU_TAIL_THREADS", threads):
                 df, rec = full_call(f"[5] {tag} tail_threads={threads}", x, labels, reference)
             runs[f"{tag} x{threads}"] = rec
             if threads == 1:
@@ -479,41 +498,11 @@ def phase_full(stats, ctx):
     stats["full"] = runs
 
     # The kernel alone at the main path's shape.
-    info, layout = layout_for(labels, "non-targeting")
-    v_buckets = 128
-    arrs = he.prepare_hist_inputs(layout, v_buckets, False, "cuda")
-    args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
-    xd = torch.from_numpy(x).cuda()
-    got = he.hist_pass(xd, *args, is_log1p=False)
-    want = he.hist_pass_plain(xd, *args, is_log1p=False)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"kernel != plain at full width: max |diff| {err}")
-    del got, want
-    ms = cuda_ms(lambda: he.hist_pass(xd, *args, is_log1p=False), reps=10)
-    plain_ms = cuda_ms(lambda: he.hist_pass_plain(xd, *args, is_log1p=False), reps=2)
-    # torch.bincount over the flattened (g*V + v)*T + j keys: one library
-    # call computing the same counts (int64), the yardstick only.
-    rows = xd.index_select(0, args[0].long())
-    grp = torch.repeat_interleave(torch.arange(n_groups, device="cuda"), torch.diff(args[1]))
-    keys = ((grp[:, None] * v_buckets + rows.long()) * n_genes
-            + torch.arange(n_genes, device="cuda"))[rows < v_buckets]
-    del rows
-    library_ms = cuda_ms(
-        lambda: torch.bincount(keys, minlength=n_groups * v_buckets * n_genes), reps=3
-    )
-    del keys
-    nbytes = (x.nbytes + n_groups * v_buckets * n_genes * 4
-              + sum(a.numel() * a.element_size() for a in args))
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    print(f"[5] hist kernel {ms:.3f} ms (bound {bound_ms:.3f} ms by bytes: "
-          f"{nbytes / 1e9:.2f} GB), plain {plain_ms:.3f} ms, "
-          f"torch.bincount {library_ms:.3f} ms", flush=True)
-    stats.update(
-        launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        library_ms=library_ms, max_abs_err=max(stats.get("max_abs_err", 0.0), err),
-    )
+    _, layout = layout_for(labels, "non-targeting")
+    rec = k1_alone("[5]", torch.from_numpy(x).cuda(), layout, 128)
+    stats.update(launches=launches, **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                           "library_ms")},
+                 max_abs_err=max(stats.get("max_abs_err", 0.0), rec["max_abs_err"]))
 
 
 def phase_csort():
@@ -1368,9 +1357,312 @@ def phase_published(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
     stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), err)
 
 
+# Poisson-lognormal UMI counts (phase 12): gene mean exp(N(m, s^2)), cell
+# size factor exp(N(0, c^2)), per-entry overdispersion exp(sigma * eps -
+# sigma^2 / 2).  At 300,000 cells these give ~90% zeros, a few percent of
+# genes with a count past the largest value table (511) and a few percent
+# with a maximum in 128-510 (numpy draws of 2,000 genes).
+HEAVY_TAILED = dict(m=-4.0, s=2.6, c=0.5, sigma=1.3)
+FALLBACK_BAND = (0.005, 0.05)  # share of columns with a count past 511
+
+
+def heavy_tailed_counts(n_cells, n_genes, seed=SEED + 10):
+    """float32 counts made on the device from a seeded ``torch.Generator``
+    with the Poisson-lognormal model of ``HEAVY_TAILED``, 256 columns at a
+    time, so no full-size rate tensor exists."""
+    import torch
+
+    m, s, c, sigma = (HEAVY_TAILED[k] for k in ("m", "s", "c", "sigma"))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    mu = torch.exp(m + s * torch.randn(n_genes, generator=gen, device=DEV))
+    ell = torch.exp(c * torch.randn((n_cells, 1), generator=gen, device=DEV))
+    x = torch.empty((n_cells, n_genes), dtype=torch.float32, device=DEV)
+    for j0 in range(0, n_genes, 256):
+        j1 = min(j0 + 256, n_genes)
+        eps = torch.randn((n_cells, j1 - j0), generator=gen, device=DEV)
+        rate = mu[j0:j1] * ell * torch.exp(sigma * eps - sigma**2 / 2)
+        x[:, j0:j1] = torch.poisson(rate, generator=gen)
+    return x
+
+
+def host_csr(xd, rows_per_block=32_768):
+    """``xd`` as an in-RAM scipy CSR with float32 data and int32 indices,
+    converted on its device in row blocks and copied to the host once."""
+    from scipy import sparse
+
+    data, indices, row_nnz = [], [], []
+    for r0 in range(0, xd.shape[0], rows_per_block):
+        block = xd[r0 : r0 + rows_per_block]
+        nz = block != 0
+        data.append(block[nz].cpu().numpy())  # row-major, as nonzero() orders
+        indices.append(nz.nonzero()[:, 1].int().cpu().numpy())
+        row_nnz.append(nz.sum(dim=1).cpu().numpy())
+        del block, nz
+    indptr = np.zeros(xd.shape[0] + 1, np.int64)
+    np.cumsum(np.concatenate(row_nnz), out=indptr[1:])
+    if indptr[-1] < 2**31:
+        indptr = indptr.astype(np.int32)
+    return sparse.csr_matrix((np.concatenate(data), np.concatenate(indices), indptr),
+                             shape=tuple(xd.shape))
+
+
+@contextlib.contextmanager
+def fallback_spy():
+    """The columns that the calls inside the block send to the sort
+    fallback, one array per call that has any."""
+    from illico_tpu_torch.models.wilcoxon import WilcoxonRunner
+
+    seen = []
+    recompute = WilcoxonRunner._recompute_with_sort_engine
+
+    def spy(self, cols, consume_stats):
+        seen.append(np.array(cols, np.int64))
+        return recompute(self, cols, consume_stats)
+
+    WilcoxonRunner._recompute_with_sort_engine = spy
+    try:
+        yield seen
+    finally:
+        WilcoxonRunner._recompute_with_sort_engine = recompute
+
+
+def heavy_call(tag, X, labels, is_log1p, shape):
+    """One timed OVO call of phase 12 through ``engine="auto"``, checked to
+    run the histogram engine at V=512 with every main tile on the native
+    tail and one K1 launch by the warm-up and one per tile; returns the
+    frame, its record and the sorted fallback columns."""
+    import torch
+
+    from illico_tpu_torch import asymptotic_wilcoxon_arrays
+    from illico_tpu_torch.ops import hist_engine as he
+
+    n_groups, n_genes = shape[2], shape[1]
+    sync()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    he.hist_pass.launches = 0
+    he.hist_pass.v_buckets = None
+    with fallback_spy() as seen:
+        t0 = time.perf_counter()
+        df = asymptotic_wilcoxon_arrays(X, labels, is_log1p=is_log1p,
+                                        reference="non-targeting", progress=False,
+                                        **({} if DEV == "cuda" else {"device": DEV}))
+        wall = time.perf_counter() - t0
+    cols = np.sort(np.concatenate(seen)) if seen else np.empty(0, np.int64)
+    n_tiles = df.attrs["consume_path"]["native"]
+    rec = {
+        "wall_s": wall, "tests_per_s": n_groups * n_genes / wall,
+        "engine": df.attrs["engine"], "v_buckets": he.hist_pass.v_buckets,
+        "launches": he.hist_pass.launches, "tiles": n_tiles,
+        "n_fallback_cols": df.attrs["n_fallback_cols"],
+        "stage_s": df.attrs["stage_seconds"], "consume_path": df.attrs["consume_path"],
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None,
+    }
+    print(f"{tag}: {json.dumps(rec)}", flush=True)
+    if rec["engine"] != "hist" or rec["v_buckets"] != he.MAX_V:
+        raise AssertionError(f"{tag}: engine {rec['engine']} at V={rec['v_buckets']}, "
+                             f"expected hist at V={he.MAX_V}")
+    if df.shape != (n_groups * n_genes, 3) or not np.isfinite(df.p_value.values).all():
+        raise AssertionError(f"{tag}: shape {df.shape} or non-finite p")
+    require_native(tag, df)
+    if DEV == "cuda" and rec["launches"] != 1 + n_tiles:
+        raise AssertionError(f"{tag}: {rec['launches']} hist kernel launches, expected "
+                             f"{1 + n_tiles} (the warm-up and one per tile)")
+    if cols.size != rec["n_fallback_cols"]:
+        raise AssertionError(f"{tag}: {cols.size} columns reached the fallback, the frame "
+                             f"says {rec['n_fallback_cols']}")
+    return df, rec, cols
+
+
+def k1_alone(tag, tile, layout, v_buckets):
+    """K1 alone on a contiguous tile with a layout's groups at table size
+    ``v_buckets``: bit for bit against its plain version, then (on CUDA) its
+    time, the plain version's and ``torch.bincount``'s beside the byte
+    bound.  Returns the record."""
+    import torch
+
+    from illico_tpu_torch.ops import hist_engine as he
+
+    arrs = he.prepare_hist_inputs(layout, v_buckets, False, tile.device)
+    args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
+    n_groups, t_cols = layout.n_groups, tile.shape[1]
+    got = he.hist_pass(tile, *args, is_log1p=False)
+    want = he.hist_pass_plain(tile, *args, is_log1p=False)
+    sync()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"{tag} V={v_buckets}: kernel != plain, max |diff| {err}")
+    del got, want
+    nbytes = (tile.numel() * tile.element_size() + n_groups * v_buckets * t_cols * 4
+              + sum(a.numel() * a.element_size() for a in args))
+    rec = {"max_abs_err": err, "bound_ms": nbytes / H100_BYTES_PER_S * 1e3}
+    if DEV == "cuda":
+        rec["ms"] = cuda_ms(lambda: he.hist_pass(tile, *args, is_log1p=False), reps=10)
+        rec["plain_ms"] = cuda_ms(lambda: he.hist_pass_plain(tile, *args, is_log1p=False),
+                                  reps=2)
+        # torch.bincount over the flattened (g*V + v)*T + j keys of the
+        # tabulated values: one library call computing the same counts
+        # (int64), the yardstick only.
+        rows = tile.index_select(0, args[0].long())
+        grp = torch.repeat_interleave(torch.arange(n_groups, device=tile.device),
+                                      torch.diff(args[1]))
+        keys = ((grp[:, None] * v_buckets + rows.long()) * t_cols
+                + torch.arange(t_cols, device=tile.device))[rows < v_buckets]
+        del rows, grp
+        rec["library_ms"] = cuda_ms(
+            lambda: torch.bincount(keys, minlength=n_groups * v_buckets * t_cols), reps=3)
+        del keys
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    print(f"{tag} hist kernel alone, V={v_buckets}, {tile.shape[0]} x {t_cols} tile, "
+          f"{n_groups} groups: kernel == plain; {json.dumps(rec)} (bound by bytes: "
+          f"{nbytes / 1e9:.2f} GB)", flush=True)
+    return rec
+
+
+def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
+    """12: the heavy-tailed count screen at the published width: (a) raw
+    counts on a CUDA tensor, (d) K1 alone at V=256 and V=512, (b) the same
+    counts as an in-RAM CSR, (c) their numpy float32 log1p as a CSR."""
+    import torch
+
+    from illico_tpu_torch.ops.hist_engine import MAX_V
+    from illico_tpu_torch.ops.rank_engine import make_tile_fn
+    from illico_tpu_torch.utils.memory import host_tile_budget
+    from illico_tpu_torch.utils.registry import data_handler_registry
+
+    n_cells, n_genes, n_groups = shape
+    rng = np.random.default_rng(SEED + 10)
+    t_sub = t0 = time.perf_counter()
+    xd = heavy_tailed_counts(n_cells, n_genes)
+    codes = rng.integers(1, n_groups, n_cells)
+    codes[rng.random(n_cells) < 0.1] = 0
+    labels = np.where(codes == 0, "non-targeting", np.char.add("pert_", codes.astype(str)))
+    col_max = xd.amax(dim=0).cpu().numpy()
+    zeros = 1.0 - float((xd != 0).sum()) / xd.numel()
+    past = np.flatnonzero(col_max >= MAX_V)  # counts no table holds: the fallback
+    upper = np.flatnonzero((col_max >= 128) & (col_max <= 510))
+    print(f"[12] data {n_cells} x {n_genes} float32 made on {xd.device} "
+          f"({xd.numel() * 4 / 1e9:.2f} GB), {n_groups} groups, {zeros:.4f} zeros, "
+          f"{past.size} columns with a count past {MAX_V - 1} ({past.size / n_genes:.4f}), "
+          f"{upper.size} with a maximum in 128-510, largest count {col_max.max():.0f}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lo, hi = FALLBACK_BAND
+    if not lo * n_genes <= past.size <= hi * n_genes:
+        raise AssertionError(f"[12] {past.size} columns past the table, outside the "
+                             f"calibrated band {FALLBACK_BAND} of {n_genes}")
+    # 50 (group, gene) pairs: 15 on fallback columns, 15 on columns whose
+    # maximum is in the table's upper part, the rest anywhere.
+    groups = np.unique(labels[labels != "non-targeting"])
+    genes = np.concatenate([rng.choice(past, 15), rng.choice(upper, 15),
+                            rng.integers(0, n_genes, n_pairs - 30)])
+    pairs = [(str(g), int(j)) for g, j in zip(groups[rng.integers(0, groups.size, n_pairs)],
+                                              genes)]
+    picked = sorted({j for _, j in pairs})
+    host = xd[:, picked].cpu().numpy()
+    raw_cols = {j: host[:, i] for i, j in enumerate(picked)}
+
+    # -- 12a: raw counts, CUDA tensor -----------------------------------------
+    df_a, rec_a, cols_a = heavy_call("[12a] raw counts, CUDA tensor", xd, labels, False, shape)
+    n_tiles = -(-n_genes // 2048)
+    if rec_a["tiles"] != n_tiles:
+        raise AssertionError(f"[12a] {rec_a['tiles']} tiles, expected {n_tiles}")
+    if not set(past) <= set(cols_a) or not lo * n_genes <= cols_a.size <= hi * n_genes:
+        raise AssertionError(f"[12a] fallback columns {cols_a.size}: expected every column "
+                             f"past the table ({past.size}), within {FALLBACK_BAND}")
+    scipy_check("[12a]", df_a, raw_cols, labels, "non-targeting", False, pairs)
+    # One 128-column chunk of the fallback alone: the sort engine's packed
+    # tile function on the card, as the fallback calls it.
+    info, layout = layout_for(labels, "non-targeting")
+    sort_fn = make_tile_fn(layout, ref_code=info.ref_code, is_log1p=False, device=DEV,
+                           pack=True)
+    chunk = xd.index_select(1, torch.from_numpy(cols_a[:128]).to(DEV))
+    chunk_ms = cuda_ms(lambda: sort_fn(chunk), reps=3) if DEV == "cuda" else None
+    del chunk, sort_fn
+    print(f"[12a] {cols_a.size} fallback columns ({cols_a.size - past.size} besides those "
+          f"past the table), one 128-column chunk of them through the sort engine on the "
+          f"card {chunk_ms} ms; {len(pairs)} pairs match scipy.stats.mannwhitneyu (15 on "
+          f"fallback columns, 15 with a maximum in 128-510); "
+          f"{time.perf_counter() - t_sub:.1f} s with the data", flush=True)
+
+    # -- 12d: K1 alone at V=256 and V=512 on a full tile ----------------------
+    t_sub = time.perf_counter()
+    tile = xd[:, :2048].contiguous()
+    k1 = {v: k1_alone("[12d]", tile, layout, v) for v in (256, 512)}
+    del tile
+    print(f"[12d] {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # -- 12b: the same counts as an in-RAM CSR ---------------------------------
+    t_sub = t0 = time.perf_counter()
+    csr = host_csr(xd)
+    del xd
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[12b] CSR {csr.shape[0]} x {csr.shape[1]}, {csr.nnz} nonzeros, data "
+          f"{csr.data.dtype}, indices {csr.indices.dtype}, made on the card and copied in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with environ("ILLICO_TPU_HOST_BUDGET", None):  # the budget a user gets
+        budget = host_tile_budget()
+        df_b, rec_b, cols_b = heavy_call("[12b] raw counts, in-RAM CSR", csr, labels, False,
+                                         shape)
+    if not df_b.index.equals(df_a.index):
+        raise AssertionError("[12b] index differs from 12a's")
+    np.testing.assert_array_equal(df_b.values, df_a.values, err_msg="[12b] vs [12a]")
+    if not np.array_equal(cols_b, cols_a):
+        raise AssertionError("[12b] fallback columns differ from 12a's")
+    # The host-input costs alone: one 2,048-column tile fetched from the
+    # CSR (a column slice, then tocsc().toarray()), and one fallback chunk
+    # of 128 columns (fancy column indexing of the whole CSR).
+    handler = data_handler_registry.get(csr)
+    t0 = time.perf_counter()
+    handler.fetch_tile(0, min(2048, n_genes))
+    fetch_tile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    handler.fetch_columns(cols_a[:128])
+    fetch_columns_s = time.perf_counter() - t0
+    st = rec_b["stage_s"]
+    print(f"[12b] frame equals 12a's bit for bit, same {cols_b.size} fallback columns; "
+          f"host tile budget {budget / 2**30:.2f} GiB -> {rec_b['tiles']} tiles; stages fetch "
+          f"{st['fetch']:.3f} s, h2d {st['h2d']:.3f} s, tail {st['tail']:.3f} s, fallback "
+          f"{st['fallback']:.3f} s; alone: one {min(2048, n_genes)}-column tile fetch "
+          f"{fetch_tile_s:.3f} s, one 128-column fallback fetch {fetch_columns_s:.3f} s; "
+          f"{time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # -- 12c: numpy float32 log1p of the same counts, CSR ----------------------
+    t_sub = time.perf_counter()
+    np.log1p(csr.data, out=csr.data)  # as scanpy does; the table is numpy's log1p too
+    with environ("ILLICO_TPU_HOST_BUDGET", None):
+        df_c, rec_c, cols_c = heavy_call("[12c] log1p counts, in-RAM CSR", csr, labels, True,
+                                         shape)
+    del csr
+    if not df_c.index.equals(df_a.index):
+        raise AssertionError("[12c] index differs from 12a's")
+    np.testing.assert_array_equal(df_c.statistic.values, df_a.statistic.values,
+                                  err_msg="[12c] U vs [12a]")
+    np.testing.assert_array_equal(df_c.p_value.values, df_a.p_value.values,
+                                  err_msg="[12c] p vs [12a]")
+    if not np.array_equal(cols_c, cols_a):
+        raise AssertionError("[12c] fallback columns differ from 12a's")
+    log_cols = {j: np.log1p(col) for j, col in raw_cols.items()}
+    scipy_check("[12c]", df_c, log_cols, labels, "non-targeting", True, pairs)
+    print(f"[12c] U and p equal 12a's bit for bit, same {cols_c.size} fallback columns; fold "
+          f"change of {len(pairs)} pairs within rtol 1e-6 of float64 numpy; "
+          f"{time.perf_counter() - t_sub:.1f} s", flush=True)
+    stats["heavy_tailed"] = dict(
+        runs={"12a": rec_a, "12b": rec_b, "12c": rec_c}, k1=k1, zeros=zeros,
+        fallback_chunk_ms=chunk_ms,
+        past_table=int(past.size), upper_table=int(upper.size),
+        fetch_tile_s=fetch_tile_s, fetch_columns_s=fetch_columns_s,
+        launches={"12a": rec_a["launches"], "12b": rec_b["launches"],
+                  "12c": rec_c["launches"]},
+    )
+    stats["max_abs_err"] = max([stats.get("max_abs_err", 0.0)]
+                               + [r["max_abs_err"] for r in k1.values()])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
+    parser.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
     parser.add_argument("--multihost-worker", nargs=4, help=argparse.SUPPRESS,
                         metavar=("ADDRESS", "RANK", "DEVICE", "OUT"))
     args = parser.parse_args()
@@ -1417,8 +1709,11 @@ def main() -> int:
     if 11 in phases:
         phase_widths(stats)
         phase_published(stats)
+    if 12 in phases:
+        phase_heavy_tailed(stats)
     print(f"phases {sorted(phases)} passed in {time.perf_counter() - t0:.1f} s", flush=True)
     sharded = stats.get("sharded", {}).get("launches", {})
+    heavy = stats.get("heavy_tailed", {})
     kernel = {
         "name": "grouped_hist",
         "route": "cuda",
@@ -1440,6 +1735,12 @@ def main() -> int:
         "launches_repaired_widths": stats.get("widths", {}).get("launches"),
         "launches_published_width": stats.get("published", {}).get("launches"),
         "ms_published_width": stats.get("published", {}).get("kernel_ms"),
+        # Phase 12, each call counted from 0: the heavy-tailed screen on a
+        # CUDA tensor (12a), as a CSR (12b) and its log1p as a CSR (12c); then
+        # K1 alone on one full tile of it at V=256 and V=512 (12d).
+        "launches_heavy_tailed": heavy.get("launches"),
+        **{f"{key}_v{v}": heavy.get("k1", {}).get(v, {}).get(key)
+           for v in (256, 512) for key in ("ms", "bound_ms", "plain_ms", "library_ms")},
         "max_abs_err": stats.get("max_abs_err"),
         "ms": stats.get("ms"),
         "plain_ms": stats.get("plain_ms"),

@@ -595,7 +595,14 @@ class WilcoxonRunner:
                     arr = np.asarray(self.handler.fetch_tile(s, min(s + w, n_genes)))
                     if not arr.size:
                         continue
-                    col_max.extend(arr.max(axis=0).astype(np.float64).tolist())
+                    window_max = arr.max(axis=0)
+                    col_max.extend(window_max.astype(np.float64).tolist())
+                    # The table size follows the whole window's maximum, as
+                    # on the device: the strided sample below aliases onto
+                    # the window's first column (every 72nd value of a
+                    # 300,000 x 24 window) and would miss the other columns'
+                    # counts (the reference package samples so).
+                    vmax = max(vmax, float(window_max.max()))
                     # Sums and nonzero counts feed rate estimates only: on
                     # tall inputs every few rows do (all rows below 2**17).
                     sub = arr[:: max(1, arr.shape[0] // _COLSTAT_ROWS)]
@@ -607,7 +614,6 @@ class WilcoxonRunner:
                     step = max(1, arr.size // 100_000)
                     vals = arr.ravel()[::step].astype(np.float32)
                     conforms = conforms and _conforms(vals)
-                    vmax = max(vmax, float(vals.max()))
                     nz += int(np.count_nonzero(vals))
                     tot += vals.size
                 if tot:

@@ -247,7 +247,10 @@ def hist_pass(x, perm, indptr, order, table, *, is_log1p: bool):
     ``x`` is the (n_cells, T) tile in original row order.  A CUDA tensor
     launches ``csrc/hist_kernel.cu`` (counted in ``hist_pass.launches``); a
     CPU tensor takes :func:`hist_pass_plain`.  Any other device raises.
+    ``hist_pass.v_buckets`` is the value-table size V of the latest call on
+    either device (None before the first).
     """
+    hist_pass.v_buckets = table.numel()
     if x.device.type == "cuda":
         return _hist_pass_cuda(x, perm, indptr, order, table, is_log1p=is_log1p)
     if x.device.type == "cpu":
@@ -256,6 +259,7 @@ def hist_pass(x, perm, indptr, order, table, *, is_log1p: bool):
 
 
 hist_pass.launches = 0
+hist_pass.v_buckets = None
 
 
 def hist_stat_bounds(

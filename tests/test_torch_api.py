@@ -90,19 +90,24 @@ def test_options_match_reference_and_scipy(test, use_continuity, tie_correct, al
 @pytest.mark.parametrize("test", ["ovo", "ovr"])
 def test_log1p_and_overflow_columns(test):
     """log1p data, and counts past the value table: those columns take the
-    sort-engine fallback and stay exact."""
+    sort-engine fallback and stay exact.  The sampled maximum (650) picks
+    the largest table, V=512, so the column of 300s is tabulated."""
+    from illico_tpu_torch.ops import hist_engine
+
     adata = _make_rand_adata("dense", n_genes=20, seed=1)
     X = adata.X.copy()
     X[::97, 7] = 650.0  # past MAX_V: overflow column (sampling sees 0..19)
-    X[::89, 11] = 300.0
+    X[::89, 11] = 300.0  # in the V=512 table
     raw = type(adata)(X, adata.obs.copy(), adata.var.copy())
     for is_log1p in (False, True):
         Xi = np.log1p(X).astype(np.float32) if is_log1p else X
         ad = type(adata)(Xi, adata.obs.copy(), adata.var.copy())
         reference = "pert_0" if test == "ovo" else None
+        hist_engine.hist_pass.v_buckets = None
         got, want = _both(ad, is_log1p=is_log1p, group_keys="pert", reference=reference)
         assert got.attrs["engine"] == "hist"
-        assert got.attrs["n_fallback_cols"] >= 2
+        assert hist_engine.hist_pass.v_buckets == 512
+        assert got.attrs["n_fallback_cols"] == 1  # column 7
         _check_frames(got, want)
         # Ranks, hence U and p, are those of the raw counts; the log1p fold
         # change is held against the reference package above.
@@ -124,6 +129,23 @@ def test_float64_routes_to_sort(engine):
             ad, is_log1p=False, group_keys="pert", engine="hist", device="cpu",
             progress=False,
         )
+
+
+@pytest.mark.parametrize("engine", ["auto", "hist", "sort", "csort"])
+@pytest.mark.parametrize("test", ["ovo", "ovr"])
+def test_zero_genes_give_the_empty_frame(engine, test):
+    """A matrix with no genes gives the empty (0, 3) frame on every engine:
+    the JAX package's sort-engine frame (its histogram engine raises
+    ZeroDivisionError there, a fault of the reference)."""
+    x = np.zeros((60, 0), np.float32)
+    labels = np.array(["a", "b", "c"] * 20)
+    reference = "a" if test == "ovo" else None
+    got = illico_tpu_torch.asymptotic_wilcoxon_arrays(
+        x, labels, reference=reference, engine=engine, progress=False, device="cpu")
+    want = illico_tpu.asymptotic_wilcoxon_arrays(
+        x, labels, reference=reference, engine="sort", progress=False)
+    assert got.shape == want.shape == (0, 3)
+    pd.testing.assert_frame_equal(got, want)
 
 
 def _reference_engine(ad, reference=None):
