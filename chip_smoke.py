@@ -104,7 +104,11 @@ Phases, each printing its own lines:
     every column with a count past 511 (and only those) in the sort
     fallback, their share within ``FALLBACK_BAND``, every tile native, K1
     launched by the warm-up and once per tile, 50 pairs against scipy (15 on
-    fallback columns, 15 on columns whose maximum is in 128-510); (d) K1
+    fallback columns, 15 on columns whose maximum is in 128-510), then one
+    128-column and one 512-column chunk of the fallback's columns (padded
+    with the columns of next largest maximum) through the sort engine alone,
+    timed, the wide one's statistics against the CPU's bit for bit, and the
+    top device kernels of one 128-column chunk under ``torch.profiler``; (d) K1
     alone on one full 2,048-column tile at V=256 and V=512, bit for bit
     against its plain version, timed beside its byte bound, its plain
     version and ``torch.bincount``; (b) the same counts as an in-RAM scipy
@@ -1348,6 +1352,36 @@ def phase_published(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
 FALLBACK_BAND = (0.005, 0.05)
 
 
+def top_device_kernels(fn, n=3):
+    """The ``n`` device kernels that take most of one call of ``fn`` under
+    ``torch.profiler``: [name, ms, share of the call's kernel time] each,
+    from the profiler's Chrome trace (its kernel spans, summed by name)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    if not by_name:
+        raise RuntimeError("the profiler's trace holds no kernel")
+    total = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return [[name[:120], ms, ms / total] for name, ms in ranked] + [["all kernels", total, 1.0]]
+
+
 def heavy_call(tag, X, labels, is_log1p, shape):
     """One timed OVO call of phase 12 through ``engine="auto"``, checked to
     run the histogram engine at V=512 with every main tile on the native
@@ -1494,19 +1528,37 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
         raise AssertionError(f"[12a] fallback columns {cols_a.size}: expected every column "
                              f"past the table ({past.size}), within {FALLBACK_BAND}")
     scipy_check("[12a]", df_a, raw_cols, labels, "non-targeting", False, pairs)
-    # One 128-column chunk of the fallback alone: the sort engine's packed
-    # tile function on the card, as the fallback calls it.
+    # Fallback chunks alone: the sort engine's packed tile function on the
+    # card, as the fallback calls it, at the fallback's 128-column width and
+    # at the sort engine's 512-column cap (the fallback columns, then those
+    # with the next largest maxima); the wide chunk's statistics held equal
+    # to the same tile function's on the CPU, and the device kernels that
+    # take most of one 128-column chunk.
     info, layout = layout_for(labels, "non-targeting")
-    sort_fn = make_tile_fn(layout, ref_code=info.ref_code, is_log1p=False, device=DEV,
-                           pack=True)
-    chunk = xd.index_select(1, torch.from_numpy(cols_a[:128]).to(DEV))
-    chunk_ms = cuda_ms(lambda: sort_fn(chunk), reps=3) if DEV == "cuda" else None
-    del chunk, sort_fn
+    fns = {dev: make_tile_fn(layout, ref_code=info.ref_code, is_log1p=False, device=dev,
+                             pack=True) for dev in {DEV, "cpu"}}
+    hot = np.argsort(-col_max, kind="stable")
+    wide = np.concatenate([cols_a, hot[~np.isin(hot, cols_a)]])[:512]
+    chunk_ms, top = {}, []
+    for width in (128, 512):
+        chunk = xd.index_select(1, torch.from_numpy(wide[:width]).to(DEV))
+        if DEV == "cuda":
+            chunk_ms[width] = cuda_ms(lambda: fns[DEV](chunk), reps=3)
+            if width == 128:
+                top = top_device_kernels(lambda: fns[DEV](chunk))
+    got = fns[DEV].unpack(fns[DEV](chunk).cpu().numpy())
+    want = fns["cpu"].unpack(fns["cpu"](chunk.cpu()).numpy())
+    for key, w in want.items():
+        np.testing.assert_array_equal(got[key], w, err_msg=f"[12a] 512-column chunk {key}")
+    del chunk, fns
+    print(f"[12a] top device kernels of one 128-column chunk (name, ms, share of its "
+          f"kernel time): {json.dumps(top)}", flush=True)
     print(f"[12a] {cols_a.size} fallback columns ({cols_a.size - past.size} besides those "
-          f"past the table), one 128-column chunk of them through the sort engine on the "
-          f"card {chunk_ms} ms; {len(pairs)} pairs match scipy.stats.mannwhitneyu (15 on "
-          f"fallback columns, 15 with a maximum in 128-510); "
-          f"{time.perf_counter() - t_sub:.1f} s with the data", flush=True)
+          f"past the table); chunks through the sort engine on the card: 128 columns "
+          f"{chunk_ms.get(128)} ms, 512 columns {chunk_ms.get(512)} ms, the 512-column "
+          f"chunk's statistics equal the CPU's; {len(pairs)} pairs match "
+          f"scipy.stats.mannwhitneyu (15 on fallback columns, 15 with a maximum in "
+          f"128-510); {time.perf_counter() - t_sub:.1f} s with the data", flush=True)
 
     # -- 12d: K1 alone at V=256 and V=512 on a full tile ----------------------
     t_sub = time.perf_counter()
@@ -1573,7 +1625,7 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
           f"{time.perf_counter() - t_sub:.1f} s", flush=True)
     stats["heavy_tailed"] = dict(
         runs={"12a": rec_a, "12b": rec_b, "12c": rec_c}, k1=k1, zeros=zeros,
-        fallback_chunk_ms=chunk_ms,
+        fallback_chunk_ms=chunk_ms, fallback_chunk_top_kernels=top,
         past_table=int(past.size), upper_table=int(upper.size),
         fetch_tile_s=fetch_tile_s, fetch_columns_s=fetch_columns_s,
         launches={"12a": rec_a["launches"], "12b": rec_b["launches"],

@@ -36,11 +36,12 @@ import numpy as np
 import torch
 
 from illico_tpu_torch.ops.rank_engine import (
-    _I32_MAX,
-    _block_bounds,
-    _boundaries,
-    _reverse_cummin,
+    _block_starts,
+    _ref_counts,
+    _sub_block_sizes,
+    _tie_blocks,
     _to_layout_order,
+    _twice_rank,
 )
 
 from illico_tpu_torch.ops.wire import (
@@ -180,35 +181,37 @@ def compact_from_entries(
 
 
 def _colwise_segment_sum(q, indptr, *, exact_int: bool):
-    """(G, T) segment sums of ``q`` (M, T) at per-column boundaries.
+    """(G, T) segment sums of a column-major ``q`` (T, M) at per-column
+    boundaries; every prefix sum runs along the innermost dim.
 
     ``exact_int``: q is int32 with 32-row partial sums provably inside
     int32; int32 within-block partials plus a float64 block prefix keep
     every integer exact below 2**53.
     """
-    m, t = q.shape
-    idx = indptr.long()
+    t, m = q.shape
+    idx = indptr.t().long()  # (T, G+1)
     if exact_int:
         nb = m // _SEG_BLOCK
-        qb = q.reshape(nb, _SEG_BLOCK, t)
-        within = qb.sum(dim=1, dtype=torch.int32)  # (nb, T)
+        qb = q.reshape(t, nb, _SEG_BLOCK)
+        within = qb.sum(dim=2, dtype=torch.int32)  # (T, nb)
         blk_css = torch.cat(
-            [within.new_zeros((1, t), dtype=torch.float64),
-             torch.cumsum(within.to(torch.float64), dim=0)]
-        )  # (nb+1, T)
-        pre_excl = (torch.cumsum(qb, dim=1, dtype=torch.int32) - qb).reshape(m, t)
-        # Row M pairs with blk_css[nb] (M is a block multiple).
-        pre_ext = torch.cat([pre_excl, pre_excl.new_zeros((1, t))])
-        a = torch.gather(blk_css, 0, idx // _SEG_BLOCK)
-        b = torch.gather(pre_ext, 0, idx).to(torch.float64)
+            [within.new_zeros((t, 1), dtype=torch.float64),
+             torch.cumsum(within.to(torch.float64), dim=1)], dim=1
+        )  # (T, nb+1)
+        pre_excl = (torch.cumsum(qb, dim=2, dtype=torch.int32) - qb).reshape(t, m)
+        # Position M pairs with blk_css[:, nb] (M is a block multiple).
+        pre_ext = torch.cat([pre_excl, pre_excl.new_zeros((t, 1))], dim=1)
+        a = torch.gather(blk_css, 1, idx // _SEG_BLOCK)
+        b = torch.gather(pre_ext, 1, idx).to(torch.float64)
         css_at = a + b
     else:
         css = torch.cat(
-            [q.new_zeros((1, t), dtype=torch.float64),
-             torch.cumsum(q.to(torch.float64), dim=0)]
+            [q.new_zeros((t, 1), dtype=torch.float64),
+             torch.cumsum(q.to(torch.float64), dim=1)], dim=1
         )
-        css_at = torch.gather(css, 0, idx)
-    return css_at[1:] - css_at[:-1]
+        css_at = torch.gather(css, 1, idx)
+    # (G, T) strides even when T is 0, which contiguous() would keep as they are.
+    return (css_at[:, 1:] - css_at[:, :-1]).t().clone(memory_format=torch.contiguous_format)
 
 
 def csort_narrow_statics(counts: np.ndarray, ref_code: int) -> dict:
@@ -369,69 +372,62 @@ def csort_stats_tile(
     nnz_g = (indptr[1:] - indptr[:-1]).to(f64)  # (G, T)
     m_real = indptr[-1]  # (T,)
     n0 = float(n_total) - m_real.to(f64)  # (T,) zeros per column
-    rows = torch.arange(m_pad, dtype=torch.int32, device=vals.device)[:, None]
-    real_mask = rows < m_real[None, :]  # layout-order real slots
+    # Column-major from here on, (T, M), as in the sort engine.
+    vals = vals.t().contiguous()
+    rows = torch.arange(m_pad, dtype=torch.int32, device=vals.device)[None, :]
+    real_mask = rows < m_real[:, None]  # layout-order real slots
 
     expr = torch.expm1(vals) if is_log1p else vals
     expr = torch.where(real_mask, expr, 0.0).to(f64)
     out = {"fc_sums": _colwise_segment_sum(expr, indptr, exact_int=False)}
 
-    sv, spos = torch.sort(vals, dim=0, stable=True)
-    neq_prev, neq_next = _boundaries(sv)
-    first, last = _block_bounds(neq_prev, neq_next)
+    sv, spos = torch.sort(vals, dim=1, stable=True)
+    starts = _block_starts(sv)
+    start, end = _tie_blocks(starts)
     pad_sorted = torch.isinf(sv)
     zero_g = counts[:, None] - nnz_g  # (G, T) zeros per group and column
 
     if ref_code == -1:
         # 2x global tie-averaged rank of a nonzero: within-nonzeros rank
-        # (first + last + 2) offset by the zeros below it (positives only).
+        # offset by the zeros below it (positives only).
+        r2 = _twice_rank(start, end)
         if wide_payload:
-            r2 = (first + last + 2).to(f64) + torch.where(sv > 0, 2.0 * n0[None, :], 0.0)
+            r2 = r2.to(f64) + torch.where(sv > 0, 2.0 * n0[:, None], 0.0)
         else:
             n0_i = n0.to(torch.int32)
-            r2 = first + last + 2 + torch.where(sv > 0, 2 * n0_i[None, :], 0)
-        n_neg = (sv < 0).to(f64).sum(dim=0)  # (T,)
-        t_blk = (last - first + 1).to(f64)
+            r2 = r2 + torch.where(sv > 0, 2 * n0_i[:, None], 0)
+        n_neg = (sv < 0).to(f64).sum(dim=1)  # (T,)
+        t_blk = (end - start).to(f64)
         tie_el = torch.where(pad_sorted, 0.0, t_blk * t_blk - 1.0)
-        out["tie_col"] = tie_el.sum(dim=0) + (n0 * n0 - 1.0) * n0
+        out["tie_col"] = tie_el.sum(dim=1) + (n0 * n0 - 1.0) * n0
         (r2_l,) = _to_layout_order(spos, r2)
         r2_nz = _int_seg(torch.where(real_mask, r2_l, 0))
         # Zero block: 2x average rank of a zero = 2*n_neg + n0 + 1.
         out["R2"] = r2_nz + zero_g * (2.0 * n_neg + n0 + 1.0)[None, :]
         return out
 
-    sg = torch.gather(grp, 0, spos)
-    isref = (sg == ref_code).to(torch.int32)
-    cref = torch.cumsum(isref, dim=0, dtype=torch.int32)
-    cref_excl = cref - isref
+    sg = torch.gather(grp.t(), 1, spos)
+    isref = sg == ref_code
     # Reference nonzeros strictly below my tie block, and inside it.
-    ref_less = torch.cummax(torch.where(neq_prev, cref_excl, 0), dim=0).values
-    ref_at_end = _reverse_cummin(torch.where(neq_next, cref, _I32_MAX))
-    ref_eq = ref_at_end - ref_less
+    ref_less, ref_eq = _ref_counts(isref, start, end)
     # Reference zero / negative-nonzero counts per column.
     nnz_ref = (indptr[ref_code + 1] - indptr[ref_code]).to(f64)  # (T,)
     n0r = counts[ref_code] - nnz_ref  # (T,)
-    refnz_neg = (isref * (sv < 0)).to(f64).sum(dim=0)  # (T,)
+    refnz_neg = (isref & (sv < 0)).to(f64).sum(dim=1)  # (T,)
     # 2x per-element U_tgt contribution of a nonzero target: reference
     # nonzeros strictly below + reference zeros below (positives only),
     # each twice, + tied reference nonzeros once.
     if wide_payload:
-        qu2 = (2 * ref_less + ref_eq).to(f64) + torch.where(sv > 0, 2.0 * n0r[None, :], 0.0)
+        qu2 = (2 * ref_less + ref_eq).to(f64) + torch.where(sv > 0, 2.0 * n0r[:, None], 0.0)
     else:
         n0r_i = n0r.to(torch.int32)
-        qu2 = 2 * ref_less + ref_eq + torch.where(sv > 0, 2 * n0r_i[None, :], 0)
+        qu2 = 2 * ref_less + ref_eq + torch.where(sv > 0, 2 * n0r_i[:, None], 0)
     # (value, group) sub-block size t for the 3at(a+t) + (t^3-t) tie terms.
-    gbrk = sg[1:] != sg[:-1]
-    sub_prev = neq_prev.clone()
-    sub_prev[1:] |= gbrk
-    sub_next = neq_next.clone()
-    sub_next[:-1] |= gbrk
-    sfirst, slast = _block_bounds(sub_prev, sub_next)
-    t_sub = (slast - sfirst + 1).to(f64)
+    t_sub = _sub_block_sizes(starts, sg).to(f64)
     a_ref = ref_eq.to(f64)
     q_tie = (t_sub * t_sub - 1.0) + 3.0 * a_ref * (a_ref + t_sub)
-    ref_term = torch.where(pad_sorted | (isref == 0), 0.0, a_ref * a_ref - 1.0)
-    out["tie_ref_col"] = ref_term.sum(dim=0) + (n0r * n0r - 1.0) * n0r
+    ref_term = torch.where(pad_sorted | ~isref, 0.0, a_ref * a_ref - 1.0)
+    out["tie_ref_col"] = ref_term.sum(dim=1) + (n0r * n0r - 1.0) * n0r
     qu2_l, qtie_l = _to_layout_order(spos, qu2, q_tie)
     u2_nz = _int_seg(torch.where(real_mask, qu2_l, 0))
     tie_nz = _colwise_segment_sum(

@@ -99,41 +99,91 @@ def build_padded_layout(perm: np.ndarray, indptr: np.ndarray, block: int = BLOCK
 
 
 def _segment_sum(q, block_starts, block_ends, within_dtype):
-    """Per-group sums over block-aligned segments: within-block sums in
-    ``within_dtype`` (int32: exact for bounded payloads), then a float64
-    cross-block cumsum and constant-index differences."""
-    n_pad, t = q.shape
-    within = q.reshape(n_pad // BLOCK, BLOCK, t).sum(dim=1, dtype=within_dtype)
-    cross = torch.cumsum(within.to(torch.float64), dim=0)
-    css = torch.cat([cross.new_zeros((1, t)), cross], dim=0)
-    return css[block_ends.long()] - css[block_starts.long()]
+    """(G, T) per-group sums of a column-major ``(T, n_pad)`` payload over
+    block-aligned segments: within-block sums in ``within_dtype`` (int32:
+    exact for bounded payloads), then a float64 cumsum across blocks along
+    the innermost dim, and constant-index differences."""
+    t, n_pad = q.shape
+    within = q.reshape(t, n_pad // BLOCK, BLOCK).sum(dim=2, dtype=within_dtype)
+    cross = torch.cumsum(within.to(torch.float64), dim=1)
+    css = torch.cat([cross.new_zeros((t, 1)), cross], dim=1)
+    out = css[:, block_ends.long()] - css[:, block_starts.long()]
+    # clone, not contiguous(): an empty (G, 0) result must get (G, T) strides too.
+    return out.t().clone(memory_format=torch.contiguous_format)
 
 
-def _reverse_cummin(x):
-    return torch.flip(torch.cummin(torch.flip(x, (0,)), dim=0).values, (0,))
+def _block_starts(sv):
+    """True where an element of a ``(T, n)`` tile sorted along its rows
+    starts its tie block: at each value change and at each row's first
+    element, so that no block runs on across rows once the tile is
+    flattened."""
+    brk = sv[:, 1:] != sv[:, :-1]
+    return torch.cat([brk.new_ones((sv.shape[0], 1)), brk], dim=1)
 
 
-def _boundaries(sv):
-    """(neq_prev, neq_next): True where an element starts / ends its tie block."""
-    brk = sv[1:] != sv[:-1]
-    edge = torch.ones_like(sv[:1], dtype=torch.bool)
-    return torch.cat([edge, brk], 0), torch.cat([brk, edge], 0)
+def _tie_blocks(starts):
+    """Flat bounds of every element's block in a ``(T, n)`` tile whose
+    blocks begin where ``starts`` is True (and at least at each row's first
+    element): ``(start, end)``, each ``(T, n)``, the flat position (into
+    the row-major tile) of the block's first element and one past its
+    last.  Parallel throughout: one 1-D cumsum numbers the blocks, one
+    scatter records where each begins, two gathers read it back.  int32
+    positions while the tile has fewer than 2**31 - 1 elements, else int64.
+    """
+    t, n = starts.shape
+    total = t * n
+    idt = torch.int32 if total < _I32_MAX else torch.int64
+    flat = starts.reshape(-1)
+    bid = torch.cumsum(flat, 0, dtype=idt) - 1  # each element's block number
+    pos = torch.arange(total, dtype=idt, device=flat.device)
+    # bounds[b] is where block b begins and bounds[n_blocks] stays total.
+    # An element that begins no block is the (pos - bid)-th such element, so
+    # it writes to a slot of its own past n_blocks: no two writes collide,
+    # and the number of blocks never has to reach the host.
+    slot = torch.where(flat, bid, (total + 1) - pos + bid)
+    bounds = torch.full((total + 1,), total, dtype=idt, device=flat.device)
+    bounds.index_put_((slot,), pos)
+    start = bounds.index_select(0, bid).view(t, n)
+    end = bounds.index_select(0, bid + 1).view(t, n)
+    return start, end
 
 
-def _block_bounds(neq_prev, neq_next):
-    """First/last row index of each element's block along axis 0."""
-    n = neq_prev.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=neq_prev.device)[:, None]
-    idx = idx.expand(neq_prev.shape)
-    first = torch.cummax(torch.where(neq_prev, idx, 0), dim=0).values
-    last = _reverse_cummin(torch.where(neq_next, idx, n))
-    return first, last
+def _ref_counts(isref, start, end):
+    """``(ref_less, ref_eq)``, int32 ``(T, n)``: per element of a sorted
+    tile, the reference elements of its row strictly below its tie block
+    and inside it, from one 1-D cumsum of ``isref`` read at the block
+    bounds of :func:`_tie_blocks`."""
+    t, n = isref.shape
+    cum = torch.cumsum(isref.reshape(-1), 0, dtype=start.dtype)
+    cex = torch.cat([cum.new_zeros(1), cum])  # reference elements before each position
+    below = cex.index_select(0, start.reshape(-1)).view(t, n)
+    ref_eq = cex.index_select(0, end.reshape(-1)).view(t, n) - below
+    ref_less = below - cex[: t * n : n, None]  # less those of the rows before
+    return ref_less.to(torch.int32), ref_eq.to(torch.int32)
+
+
+def _twice_rank(start, end):
+    """2x the 1-based tie-averaged rank of each element within its row,
+    first + last + 2, from the flat bounds of :func:`_tie_blocks` (exact
+    int32)."""
+    t, n = start.shape
+    base = torch.arange(t, dtype=start.dtype, device=start.device)[:, None] * n
+    return ((start - base) + (end - base) + 1).to(torch.int32)
+
+
+def _sub_block_sizes(starts, sg):
+    """Size of each element's (value, group) sub-block in a sorted
+    ``(T, n)`` tile: its tie block, cut again where the group code changes."""
+    sub = starts.clone()
+    sub[:, 1:] |= sg[:, 1:] != sg[:, :-1]
+    start, end = _tie_blocks(sub)
+    return end - start
 
 
 def _to_layout_order(spos, *payloads):
-    """Scatter sorted-order payloads back to layout order (spos is a
-    permutation of the rows in every column)."""
-    return [torch.empty_like(p).scatter_(0, spos, p) for p in payloads]
+    """Scatter sorted-order payloads back to layout order along the rows
+    (``spos`` is a permutation of each row's positions)."""
+    return [torch.empty_like(p).scatter_(1, spos, p) for p in payloads]
 
 
 def rank_stats_tile(
@@ -164,6 +214,10 @@ def rank_stats_tile(
       OVR: R2 (2x rank sums, exact) (G, T), tie_col (T,)
       OVO: U2 (2x U_tgt, exact) (G, T), tie_seg (G, T), tie_ref_col (T,)
       both: fc_sums (G, T).
+
+    The tile is worked column-major, ``(T, n_pad)``, so that every scan
+    runs along the innermost dim or over the flattened tile; torch runs a
+    scan along an outer dim with one thread per column.
     """
     # Narrow wire dtypes are cast on the device: exact for integers below
     # 2**24 and for every float16 value.
@@ -172,54 +226,41 @@ def rank_stats_tile(
     n_pad = perm.shape[0]
     int_within = torch.int32 if n_pad <= _I32_SAFE_N_PAD else torch.float64
 
-    gathered = x_raw.index_select(0, perm.clamp(0, x_raw.shape[0] - 1).long())
-    pad2d = pad_mask[:, None]
+    gathered = x_raw.index_select(0, perm.clamp(0, x_raw.shape[0] - 1).long()).t().contiguous()
+    pad2d = pad_mask[None, :]
     xp = torch.where(pad2d, torch.inf, gathered)
 
     expr = torch.expm1(gathered) if is_log1p else gathered
     expr = torch.where(pad2d, 0.0, expr).to(torch.float64)
     out = {"fc_sums": _segment_sum(expr, block_starts, block_ends, torch.float64)}
 
-    sv, spos = torch.sort(xp, dim=0, stable=True)
-    neq_prev, neq_next = _boundaries(sv)
-    first, last = _block_bounds(neq_prev, neq_next)
+    sv, spos = torch.sort(xp, dim=1, stable=True)
+    starts = _block_starts(sv)
+    start, end = _tie_blocks(starts)
     pad_sorted = torch.isinf(sv)
 
     if ref_code == -1:
-        # 2x (1-based average rank) = first + last + 2 — exact int32.
-        r2 = first + last + 2
+        r2 = _twice_rank(start, end)
         # Per-column tie sum: each element of a t-block contributes t^2 - 1.
-        t_blk = (last - first + 1).to(torch.float64)
-        out["tie_col"] = torch.where(pad_sorted, 0.0, t_blk * t_blk - 1.0).sum(0)
+        t_blk = (end - start).to(torch.float64)
+        out["tie_col"] = torch.where(pad_sorted, 0.0, t_blk * t_blk - 1.0).sum(1)
         (r2_l,) = _to_layout_order(spos, r2)
         r2_l = torch.where(pad2d, 0, r2_l)
         out["R2"] = _segment_sum(r2_l, block_starts, block_ends, int_within)
         return out
 
-    sg = grp.long()[spos]  # (value, group)-sorted group codes
-    isref = (sg == ref_code).to(torch.int32)
-    cref = torch.cumsum(isref, dim=0, dtype=torch.int32)
-    cref_excl = cref - isref
-    # Reference elements strictly below my tie block (prefix count at the
-    # block start, propagated forward) and inside it.
-    ref_less = torch.cummax(torch.where(neq_prev, cref_excl, 0), dim=0).values
-    ref_at_end = _reverse_cummin(torch.where(neq_next, cref, _I32_MAX))
-    ref_eq = ref_at_end - ref_less
+    sg = grp[spos]  # (value, group)-sorted group codes
+    isref = sg == ref_code
+    ref_less, ref_eq = _ref_counts(isref, start, end)
     qu2 = 2 * ref_less + ref_eq  # 2 * per-element U_tgt contribution
     # (value, group) sub-block size t for the 3at(a+t) + (t^3-t) tie terms.
-    gbrk = sg[1:] != sg[:-1]
-    sub_prev = neq_prev.clone()
-    sub_prev[1:] |= gbrk
-    sub_next = neq_next.clone()
-    sub_next[:-1] |= gbrk
-    sfirst, slast = _block_bounds(sub_prev, sub_next)
-    t_sub = (slast - sfirst + 1).to(torch.float64)
+    t_sub = _sub_block_sizes(starts, sg).to(torch.float64)
     a_ref = ref_eq.to(torch.float64)
     q_tie = (t_sub * t_sub - 1.0) + 3.0 * a_ref * (a_ref + t_sub)
     # Per-column scalar: sum over value blocks of a^3 - a (each reference
     # element contributes a^2 - 1).
-    ref_term = torch.where(pad_sorted | (isref == 0), 0.0, a_ref * a_ref - 1.0)
-    out["tie_ref_col"] = ref_term.sum(0)
+    ref_term = torch.where(pad_sorted | ~isref, 0.0, a_ref * a_ref - 1.0)
+    out["tie_ref_col"] = ref_term.sum(1)
     qu2_l, qtie_l = _to_layout_order(spos, qu2, q_tie)
     qu2_l = torch.where(pad2d, 0, qu2_l)
     qtie_l = torch.where(pad2d, 0.0, qtie_l)
