@@ -112,10 +112,16 @@ Phases, each printing its own lines:
     alone on one full 2,048-column tile at V=256 and V=512, bit for bit
     against its plain version, timed beside its byte bound, its plain
     version and ``torch.bincount``; (b) the same counts as an in-RAM scipy
-    CSR (float32 data, int32 indices) with the default host tile budget:
-    the frame equals (a)'s bit for bit, the same fallback columns, and one
-    tile fetch and one fallback chunk's fetch timed alone; (c) numpy float32
-    ``log1p`` of that CSR's data: U and p equal (a)'s bit for bit, the same
+    CSR (float32 data, int32 indices), twice: as a user's call runs it (the
+    device route: the CSR uploaded and ordered by column on the card, every
+    tile and fallback chunk made there, 2,048-column tiles) and with the
+    route's fit check refused (the host route, the default host tile
+    budget): each frame equals (a)'s bit for bit, with the same fallback
+    columns; then, alone, the CSR's index check, one host tile fetch and one
+    host fallback chunk's fetch, the device upload and column sort, and one
+    tile and one chunk densified on the card; (c) numpy float32 ``log1p`` of
+    that CSR's data,
+    on the device route: U and p equal (a)'s bit for bit, the same
     fallback columns, fold change against float64 numpy on the 50 pairs.
 
 Backed h5ad inputs are not driven here: the chip machine has no ``h5py``.
@@ -135,6 +141,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -605,12 +612,15 @@ def phase_normalized(stats, n_cells=300_000, n_genes=2048, n_groups=2000, width=
             "engine": df.attrs["engine"], "stage_s": df.attrs["stage_seconds"],
             "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
             "hist_launches": he.hist_pass.launches,
-            "consume_path": df.attrs["consume_path"],
+            "consume_path": df.attrs["consume_path"], "input_route": df.attrs["input_route"],
         }
         print(f"[7] {tag}: {json.dumps(runs[tag])}", flush=True)
         want = "csort" if engine == "auto" else engine
         if df.attrs["engine"] != want or not np.isfinite(df.p_value.values).all():
             raise AssertionError(f"{tag}: engine {df.attrs['engine']} or non-finite p")
+        # csort compacts on the host; the sort engine takes the CSR to the card.
+        if df.attrs["input_route"] != ("host" if want == "csort" else "device"):
+            raise AssertionError(f"{tag}: input route {df.attrs['input_route']}")
         if df.shape != (n_groups * n_genes, 3):
             raise AssertionError(f"{tag}: result shape {df.shape}")
         require_native(tag, df)
@@ -1382,11 +1392,12 @@ def top_device_kernels(fn, n=3):
     return [[name[:120], ms, ms / total] for name, ms in ranked] + [["all kernels", total, 1.0]]
 
 
-def heavy_call(tag, X, labels, is_log1p, shape):
+def heavy_call(tag, X, labels, is_log1p, shape, route="device"):
     """One timed OVO call of phase 12 through ``engine="auto"``, checked to
     run the histogram engine at V=512 with every main tile on the native
-    tail and one K1 launch by the warm-up and one per tile; returns the
-    frame, its record and the sorted fallback columns."""
+    tail, one K1 launch by the warm-up and one per tile, and its tiles made
+    where ``route`` says (``df.attrs["input_route"]``); returns the frame,
+    its record and the sorted fallback columns."""
     import torch
 
     from benchmarks_torch.run import fallback_spy
@@ -1410,6 +1421,7 @@ def heavy_call(tag, X, labels, is_log1p, shape):
     rec = {
         "wall_s": wall, "tests_per_s": n_groups * n_genes / wall,
         "engine": df.attrs["engine"], "v_buckets": he.hist_pass.v_buckets,
+        "input_route": df.attrs["input_route"],
         "launches": he.hist_pass.launches, "tiles": n_tiles,
         "n_fallback_cols": df.attrs["n_fallback_cols"],
         "stage_s": df.attrs["stage_seconds"], "consume_path": df.attrs["consume_path"],
@@ -1422,6 +1434,8 @@ def heavy_call(tag, X, labels, is_log1p, shape):
     if df.shape != (n_groups * n_genes, 3) or not np.isfinite(df.p_value.values).all():
         raise AssertionError(f"{tag}: shape {df.shape} or non-finite p")
     require_native(tag, df)
+    if rec["input_route"] != route:
+        raise AssertionError(f"{tag}: input route {rec['input_route']}, expected {route}")
     if DEV == "cuda" and rec["launches"] != 1 + n_tiles:
         raise AssertionError(f"{tag}: {rec['launches']} hist kernel launches, expected "
                              f"{1 + n_tiles} (the warm-up and one per tile)")
@@ -1484,10 +1498,11 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
 
     from benchmarks_torch.datagen import heavy_tailed_counts, host_csr, perturbation_labels
     from benchmarks_torch.run import load_config
+    from illico_tpu_torch.models import wilcoxon
     from illico_tpu_torch.ops.hist_engine import MAX_V
     from illico_tpu_torch.ops.rank_engine import make_tile_fn
     from illico_tpu_torch.utils.memory import host_tile_budget
-    from illico_tpu_torch.utils.registry import data_handler_registry
+    from illico_tpu_torch.utils.registry import DeviceSparseDataHandler, data_handler_registry
 
     n_cells, n_genes, n_groups = shape
     t_sub = t0 = time.perf_counter()
@@ -1576,31 +1591,68 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
     print(f"[12b] CSR {csr.shape[0]} x {csr.shape[1]}, {csr.nnz} nonzeros, data "
           f"{csr.data.dtype}, indices {csr.indices.dtype}, made on the card and copied in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # Twice: as a user's call runs it (the copy fits the card: the device
+    # route), then with the fit check refused (the host route, out of core).
+    recs_b = {}
     with environ("ILLICO_TPU_HOST_BUDGET", None):  # the budget a user gets
         budget = host_tile_budget()
-        df_b, rec_b, cols_b = heavy_call("[12b] raw counts, in-RAM CSR", csr, labels, False,
-                                         shape)
-    if not df_b.index.equals(df_a.index):
-        raise AssertionError("[12b] index differs from 12a's")
-    np.testing.assert_array_equal(df_b.values, df_a.values, err_msg="[12b] vs [12a]")
-    if not np.array_equal(cols_b, cols_a):
-        raise AssertionError("[12b] fallback columns differ from 12a's")
-    # The host-input costs alone: one 2,048-column tile fetched from the
-    # CSR (a column slice, then tocsc().toarray()), and one fallback chunk
-    # of 128 columns (fancy column indexing of the whole CSR).
+        for route in ("device", "host"):
+            refuse = (mock.patch.object(wilcoxon, "_fits_on_device", lambda dev, nbytes: False)
+                      if route == "host" else contextlib.nullcontext())
+            with refuse:
+                df_b, rec_b, cols_b = heavy_call(f"[12b] raw counts, in-RAM CSR, {route} route",
+                                                 csr, labels, False, shape, route=route)
+            if not df_b.index.equals(df_a.index):
+                raise AssertionError(f"[12b] {route} route: index differs from 12a's")
+            np.testing.assert_array_equal(df_b.values, df_a.values,
+                                          err_msg=f"[12b] {route} route vs [12a]")
+            if not np.array_equal(cols_b, cols_a):
+                raise AssertionError(f"[12b] {route} route: fallback columns differ from 12a's")
+            recs_b[route] = rec_b
+            del df_b
+    # The staging costs alone.  Host route: one 2,048-column tile fetched
+    # from the CSR (a column slice, then tocsc().toarray()) and one fallback
+    # chunk of 128 columns (fancy column indexing of the whole CSR).  Device
+    # route: the upload and column sort of the whole CSR, then the same tile
+    # and chunk densified on the card.  Either route: the API's check that
+    # each row's column indices are sorted, a host pass over all of them.
     handler = data_handler_registry.get(csr)
+    t0 = time.perf_counter()
+    handler.validate()
+    validate_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     handler.fetch_tile(0, min(2048, n_genes))
     fetch_tile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     handler.fetch_columns(cols_a[:128])
     fetch_columns_s = time.perf_counter() - t0
-    st = rec_b["stage_s"]
-    print(f"[12b] frame equals 12a's bit for bit, same {cols_b.size} fallback columns; "
-          f"host tile budget {budget / 2**30:.2f} GiB -> {rec_b['tiles']} tiles; stages fetch "
-          f"{st['fetch']:.3f} s, h2d {st['h2d']:.3f} s, tail {st['tail']:.3f} s, fallback "
-          f"{st['fallback']:.3f} s; alone: one {min(2048, n_genes)}-column tile fetch "
-          f"{fetch_tile_s:.3f} s, one 128-column fallback fetch {fetch_columns_s:.3f} s; "
+    on_card = DeviceSparseDataHandler(handler, DEV)
+    sync()
+    t0 = time.perf_counter()
+    on_card.load()
+    sync()
+    load_s = time.perf_counter() - t0
+    if DEV == "cuda":
+        densify_tile_ms = cuda_ms(lambda: on_card.fetch_tile(0, min(2048, n_genes)), reps=5)
+        densify_chunk_ms = cuda_ms(lambda: on_card.fetch_columns(cols_a[:128]), reps=5)
+    else:
+        densify_tile_ms = densify_chunk_ms = None
+    on_card.release()
+    del on_card
+    st, sh = recs_b["device"]["stage_s"], recs_b["host"]["stage_s"]
+    print(f"[12b] both routes' frames equal 12a's bit for bit, same {cols_a.size} fallback "
+          f"columns; device route: {recs_b['device']['tiles']} tiles, stages fetch "
+          f"{st['fetch']:.3f} s, h2d {st['h2d']:.3f} s, kernel {st['kernel']:.3f} s, tail "
+          f"{st['tail']:.3f} s, fallback {st['fallback']:.3f} s, peak "
+          f"{recs_b['device']['peak_device_gb']} GB; host route (tile budget "
+          f"{budget / 2**30:.2f} GiB): {recs_b['host']['tiles']} tiles, fetch "
+          f"{sh['fetch']:.3f} s, h2d {sh['h2d']:.3f} s, kernel {sh['kernel']:.3f} s, tail "
+          f"{sh['tail']:.3f} s, fallback {sh['fallback']:.3f} s, peak "
+          f"{recs_b['host']['peak_device_gb']} GB; alone: host tile fetch "
+          f"({min(2048, n_genes)} columns) {fetch_tile_s:.3f} s, host 128-column fallback "
+          f"fetch {fetch_columns_s:.3f} s, device upload and column sort {load_s:.3f} s, "
+          f"device tile {densify_tile_ms} ms, device 128-column chunk {densify_chunk_ms} ms, "
+          f"the CSR's index check {validate_s:.3f} s; "
           f"{time.perf_counter() - t_sub:.1f} s", flush=True)
 
     # -- 12c: numpy float32 log1p of the same counts, CSR ----------------------
@@ -1624,12 +1676,14 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
           f"change of {len(pairs)} pairs within rtol 1e-6 of float64 numpy; "
           f"{time.perf_counter() - t_sub:.1f} s", flush=True)
     stats["heavy_tailed"] = dict(
-        runs={"12a": rec_a, "12b": rec_b, "12c": rec_c}, k1=k1, zeros=zeros,
-        fallback_chunk_ms=chunk_ms, fallback_chunk_top_kernels=top,
+        runs={"12a": rec_a, "12b": recs_b["device"], "12b_host": recs_b["host"], "12c": rec_c},
+        k1=k1, zeros=zeros, fallback_chunk_ms=chunk_ms, fallback_chunk_top_kernels=top,
         past_table=int(past.size), upper_table=int(upper.size),
-        fetch_tile_s=fetch_tile_s, fetch_columns_s=fetch_columns_s,
-        launches={"12a": rec_a["launches"], "12b": rec_b["launches"],
-                  "12c": rec_c["launches"]},
+        fetch_tile_s=fetch_tile_s, fetch_columns_s=fetch_columns_s, device_load_s=load_s,
+        validate_s=validate_s,
+        device_tile_ms=densify_tile_ms, device_chunk_ms=densify_chunk_ms,
+        launches={"12a": rec_a["launches"], "12b": recs_b["device"]["launches"],
+                  "12b_host": recs_b["host"]["launches"], "12c": rec_c["launches"]},
     )
     stats["max_abs_err"] = max([stats.get("max_abs_err", 0.0)]
                                + [r["max_abs_err"] for r in k1.values()])

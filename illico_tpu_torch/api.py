@@ -9,8 +9,10 @@ over several devices with ``devices=``.
 
 The DataFrame's ``attrs["stage_seconds"]`` holds the run's per-stage
 seconds (see :class:`illico_tpu_torch.models.wilcoxon.RunResult`),
-``attrs["stage_seconds_by_device"]`` the device stages per device, and
-``attrs["consume_path"]`` how many tiles the native tail and numpy consumed.
+``attrs["stage_seconds_by_device"]`` the device stages per device,
+``attrs["consume_path"]`` how many tiles the native tail and numpy consumed,
+and ``attrs["input_route"]`` where the tiles were made (``"device"`` or
+``"host"``).
 """
 
 from __future__ import annotations
@@ -120,7 +122,13 @@ def asymptotic_wilcoxon(
     counts, csort for other data at most half nonzero, sort otherwise).
     ``X`` may also be a ``torch.Tensor``: a CUDA tensor is used where it
     lives (no fetch, no host-to-device copy; ``device`` defaults to its
-    device), a CPU tensor is host input like an ``ndarray``.
+    device), a CPU tensor is host input like an ``ndarray``.  An in-RAM CSR
+    or CSC on one CUDA device, with the histogram or sort engine, is
+    uploaded once per call and ordered by column on the card, which then
+    makes every tile and fallback chunk, when that copy fits half the
+    card's free memory with room to convert it; otherwise (csort,
+    ``devices=``, a matrix too large) it is staged from the host tile by
+    tile, as dense and backed inputs are.
     ``precompile`` warms the run up before the tile loop: it builds and
     loads the CUDA kernel and the native C++ tail and runs the tile function
     once on a zero tile of the run's shape.  ``profile_dir`` wraps the run
@@ -142,8 +150,9 @@ def asymptotic_wilcoxon(
     device when that is another card.
 
     ``df.attrs`` carries ``stage_seconds``, ``stage_seconds_by_device``,
-    ``engine``, ``n_fallback_cols`` and ``consume_path`` (shard tiles
-    consumed by the native tail and by numpy).
+    ``engine``, ``n_fallback_cols``, ``consume_path`` (shard tiles
+    consumed by the native tail and by numpy) and ``input_route``
+    (``"device"`` when the tiles were made on the device, else ``"host"``).
     """
     if alternative not in ("two-sided", "greater", "less"):
         raise ValueError(f"Unsupported alternative hypothesis: {alternative}")
@@ -194,6 +203,7 @@ def asymptotic_wilcoxon(
     df.attrs["engine"] = runner.engine
     df.attrs["n_fallback_cols"] = res.n_fallback_cols
     df.attrs["consume_path"] = dict(res.consume_path)
+    df.attrs["input_route"] = runner.input_route
     return df
 
 

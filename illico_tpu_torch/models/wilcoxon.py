@@ -13,7 +13,11 @@ table cannot hold are recomputed exactly by the sort engine.  Compact-sort
 tiles (nonzeros only) are built by the prefetch threads and staged as three
 arrays.  A matrix that already lives on the device (a ``torch.Tensor``
 there) is sliced in place: no fetch, no staging, every tile dispatched up
-front.
+front.  So is an in-RAM CSR or CSC on a single-device CUDA run of the
+histogram or sort engine when its column-ordered copy fits the card: it is
+uploaded once at the start of :meth:`WilcoxonRunner.run` and every tile and
+fallback chunk is densified from it on the device
+(:class:`~illico_tpu_torch.utils.registry.DeviceSparseDataHandler`).
 
 Under a device mesh (:mod:`illico_tpu_torch.parallel`) a tile splits into
 one contiguous column range per gene shard, and the loop runs over (tile,
@@ -42,8 +46,18 @@ from illico_tpu_torch.parallel.mesh import Shard, on_device, warm_shards
 from illico_tpu_torch.stats import fold_change_from_summed_expr, pvalues_from_stats
 from illico_tpu_torch.utils.groups import GroupInfo
 from illico_tpu_torch.utils.log import logger
-from illico_tpu_torch.utils.memory import device_free_bytes, log_memory_usage
-from illico_tpu_torch.utils.registry import DataHandler
+from illico_tpu_torch.utils.memory import (
+    device_free_bytes,
+    estimate_memory_usage,
+    log_memory_usage,
+)
+from illico_tpu_torch.utils.registry import (
+    CSCDataHandler,
+    CSRDataHandler,
+    DataHandler,
+    DeviceSparseDataHandler,
+    device_sparse_dtype,
+)
 
 __all__ = ["WilcoxonRunner", "RunResult", "compute_tile_bounds"]
 
@@ -60,6 +74,12 @@ CSORT_MAX_DENSITY = 0.5
 # may take when the auto tile width is chosen.
 _DEVICE_MEM_SHARE = 0.5
 
+# Device bytes per nonzero that putting a sparse matrix in column order may
+# take beyond the copy itself: a CSR's stable sort holds its column indices,
+# the sorted keys, the int64 permutation, the sort's own int64 index input
+# and scratch; a CSC sorted within its columns, its int64 keys instead.
+_SPARSE_CONVERT_BYTES = 48
+
 # Rows per sampled window that the per-column sums and nonzero counts read
 # (a row stride keeps it between this and twice this on taller inputs).
 _COLSTAT_ROWS = 1 << 16
@@ -74,7 +94,8 @@ class RunResult:
     # (n_groups, n_genes, 3) float64 results in [p, U, fc] column order.
     stacked: np.ndarray
     # Seconds per stage: host "fetch" (waiting on prefetch), device
-    # DEVICE_STAGES (CUDA events; host clock on a CPU device), host "tail"
+    # DEVICE_STAGES (CUDA events; host clock on a CPU device; "h2d" also holds
+    # the upload of a sparse matrix put on the device, host clock), host "tail"
     # (consuming the packed buffers: p-values and fold changes), "fallback"
     # (sort-engine recompute) and "precompile" (the warm-up, when run).
     stage_seconds: dict
@@ -84,6 +105,13 @@ class RunResult:
     consume_path: dict = dataclasses.field(default_factory=dict)
     # The device stages of stage_seconds split by the shards' lead devices.
     stage_seconds_by_device: dict = dataclasses.field(default_factory=dict)
+
+
+def _fits_on_device(device: torch.device, nbytes: int) -> bool:
+    """Do ``nbytes`` fit the share of ``device``'s free memory a run may
+    take?  Never on a device that reports none (the CPU)."""
+    free = device_free_bytes(device)
+    return free is not None and nbytes <= _DEVICE_MEM_SHARE * free
 
 
 def compute_tile_bounds(
@@ -270,6 +298,11 @@ class WilcoxonRunner:
                 integral=conforms if not self.is_log1p else None,
             )
         self._v_buckets = self._pick_v_buckets() if engine == "hist" else 0
+        # After the engine, the sample and the table: they are the host
+        # route's, so the frames are too.
+        if self._sparse_device_route():
+            self.handler = DeviceSparseDataHandler(handler, self.device)
+            self.wire_dtype = np.dtype(self.value_dtype)
         n_gene_shards = 1
         if mesh is not None:
             if self._cell_mesh:
@@ -363,8 +396,8 @@ class WilcoxonRunner:
             else [Shard(self.tile_fn, (self.device,), (None,), {"calls": 0})]
         )
         logger.trace(
-            "Engine %s, tile width %d for %d genes (%d tiles) on %s.",
-            self.engine, self.tile_width, self.n_genes, len(self.bounds),
+            "Engine %s, %s input, tile width %d for %d genes (%d tiles) on %s.",
+            self.engine, self.input_route, self.tile_width, self.n_genes, len(self.bounds),
             self.device if mesh is None else f"mesh {mesh.shape} of {set(mesh.devices)}",
         )
 
@@ -427,8 +460,38 @@ class WilcoxonRunner:
 
     @property
     def _device_resident(self) -> bool:
-        """The matrix is a tensor on a device already (no fetch, no H2D)."""
+        """Tiles are made on the device (no fetch, no staging): a tensor
+        there, or a sparse matrix put there by :meth:`run`."""
         return getattr(self.handler, "is_device", False)
+
+    @property
+    def input_route(self) -> str:
+        """``"device"`` when tiles are made on the device, else ``"host"``."""
+        return "device" if self._device_resident else "host"
+
+    def _sparse_device_route(self) -> bool:
+        """Put an in-RAM CSR or CSC on the device for the run? Only on one
+        device, for the histogram or sort engine (csort compacts on the
+        host), for a dtype the device copy holds, and when the copy, with
+        the transient memory of its conversion or the workspace of the
+        128-column tile floor, whichever is larger, fits
+        (:func:`_fits_on_device`).  Otherwise the host route stages the
+        matrix tile by tile, out of core."""
+        h = self.handler
+        if (
+            self.mesh is not None
+            or self.engine not in ("hist", "sort")
+            or type(h) not in (CSRDataHandler, CSCDataHandler)
+            or device_sparse_dtype(h.dtype) is None
+        ):
+            return False
+        _, floor = estimate_memory_usage(
+            h, self.info, 128, self.n_threads, engine=self.engine,
+            v_buckets=self._v_buckets or 128,
+            value_itemsize=int(np.dtype(self.value_dtype).itemsize),
+        )
+        need = h.footprint() + max(_SPARSE_CONVERT_BYTES * int(h.data.nnz), floor)
+        return _fits_on_device(self.device, need)
 
     def _auto_tile_width(self) -> int:
         """Tile width for ``batch_size="auto"``: as wide as the engine cap
@@ -475,6 +538,12 @@ class WilcoxonRunner:
         from illico_tpu_torch.ops.hist_engine import CONTRACT_CHUNK_BYTES
 
         n_cells = int(self.handler.shape[0])
+        # A sparse matrix bound for the device is uploaded by run(), after
+        # this: its copy is not yet off the free memory.
+        held = (
+            self.handler.footprint()
+            if isinstance(self.handler, DeviceSparseDataHandler) else 0
+        )
         if self.mesh is None:
             columns = [(self.device,)]
         else:
@@ -498,6 +567,8 @@ class WilcoxonRunner:
             if free is None:
                 continue
             usable = _DEVICE_MEM_SHARE * free - 4 * CONTRACT_CHUNK_BYTES * led.get(dev, 0)
+            if dev == self.device:
+                usable -= held
             cap = int(usable / (n_hists * hist_col + rows[dev] * 4))
             shard_cap = cap if shard_cap is None else min(shard_cap, cap)
         return None if shard_cap is None else shard_cap * len(columns)
@@ -967,7 +1038,27 @@ class WilcoxonRunner:
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
         return res
 
-    def _run(self, progress: bool = True) -> RunResult:
+    def _run(self, progress: bool) -> RunResult:
+        """The tile loop, between the upload of a sparse matrix bound for
+        the device (timed by the host clock up to a sync, charged to
+        ``h2d``) and the release of its copy, on success or error."""
+        if not isinstance(self.handler, DeviceSparseDataHandler):
+            return self._run_tiles(progress)
+        t0 = time.perf_counter()
+        try:
+            self.handler.load()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            upload = time.perf_counter() - t0
+            res = self._run_tiles(progress)
+        finally:
+            self.handler.release()
+        res.stage_seconds["h2d"] += upload
+        by_device = res.stage_seconds_by_device.setdefault(str(self.device), {})
+        by_device["h2d"] = by_device.get("h2d", 0.0) + upload
+        return res
+
+    def _run_tiles(self, progress: bool) -> RunResult:
         info = self.info
         G, n_genes = info.n_groups, self.n_genes
         n_tests = G * n_genes

@@ -6,7 +6,9 @@ handlers also stream a window's nonzero entries for the compact sort engine.
 Registered here: ``np.ndarray``, scipy CSR and CSC (matrix and array
 classes) and ``torch.Tensor`` (a CUDA tensor is device-resident input, its
 tiles column slices on the device; a CPU tensor is host input, read through
-its zero-copy numpy view); :func:`ensure_backed_handlers`
+its zero-copy numpy view).  :class:`DeviceSparseDataHandler` is registered
+for no type: the runner puts an in-RAM CSR or CSC on the device with it when
+the copy fits there.  :func:`ensure_backed_handlers`
 adds ``h5py.Dataset`` (backed dense, when ``h5py`` imports), this package's
 :class:`illico_tpu_torch.io.h5ad.BackedCSC`, and anndata's backed CSC (when
 ``anndata`` imports).  Backed CSR, like any other type, raises ``KeyError``
@@ -24,6 +26,9 @@ from scipy import sparse as sp
 __all__ = [
     "DataHandler",
     "DeviceDenseDataHandler",
+    "DeviceSparseDataHandler",
+    "device_sparse_dtype",
+    "sparse_device_bytes",
     "data_handler_registry",
     "DataHandlerRegistry",
     "ensure_backed_handlers",
@@ -172,6 +177,34 @@ def _tensor_handler(x: torch.Tensor) -> DataHandler:
     return DenseDataHandler(x.detach().numpy())
 
 
+def device_sparse_dtype(dtype) -> np.dtype | None:
+    """The dtype in which :class:`DeviceSparseDataHandler` holds values of
+    ``dtype`` (uint16 widened to int32, as the host wire widens it: torch's
+    uint16 has few device ops), or None for a dtype it does not take."""
+    dtype = np.dtype(dtype)
+    if dtype == np.uint16:
+        return np.dtype(np.int32)
+    if dtype in (np.int8, np.uint8, np.int16, np.int32, np.int64, np.float32, np.float64):
+        return dtype
+    return None
+
+
+def _wide_rows(shape, nnz: int) -> bool:
+    """Row indices of the column-ordered copy are int64 past 2**31 rows or
+    entries, int32 below."""
+    return max(int(shape[0]), int(nnz)) >= 2**31
+
+
+def sparse_device_bytes(shape, nnz: int, dtype) -> int:
+    """Bytes of a sparse matrix held in column order on the device: an int64
+    column pointer, one row index per entry and the values in
+    :func:`device_sparse_dtype` (their own dtype when the device route does
+    not take it)."""
+    value = device_sparse_dtype(dtype) or np.dtype(dtype)
+    row = 8 if _wide_rows(shape, nnz) else 4
+    return 8 * (int(shape[1]) + 1) + int(nnz) * (row + value.itemsize)
+
+
 class _SparseDataHandler(DataHandler):
     @property
     def dtype(self):
@@ -181,8 +214,8 @@ class _SparseDataHandler(DataHandler):
         return self.data[:, np.asarray(idx)].toarray()
 
     def footprint(self):
-        d = self.data
-        return d.data.nbytes + d.indices.nbytes + d.indptr.nbytes
+        """Bytes of the matrix in column order, as the device route holds it."""
+        return sparse_device_bytes(self.data.shape, self.data.nnz, self.dtype)
 
     def density(self):
         n_rows, n_cols = self.data.shape
@@ -256,6 +289,160 @@ class CSCDataHandler(_SparseDataHandler):
 
 data_handler_registry[sp.csr_array] = CSRDataHandler
 data_handler_registry[sp.csc_array] = CSCDataHandler
+
+
+class DeviceSparseDataHandler(DataHandler):
+    """An in-RAM CSR or CSC held in column order on a torch device for one
+    run.  :meth:`load` uploads the nonzeros and orders them by column there;
+    tiles and column gathers are then densified where they are used (a zero
+    fill, then one scatter of the columns' entries) with no host work and no
+    host sync; :meth:`release` frees the copy.  The duplicate entries of a
+    non-canonical matrix are summed once, at load, in storage order and in
+    the stored dtype, as scipy's ``toarray`` sums them, and a float ``-0.0``
+    is stored as ``+0.0`` (``toarray`` adds each entry to a zero), so every
+    tile equals the host handler's bit for bit.  Shape, dtype and density
+    are the host handler's."""
+
+    is_device = True
+
+    def __init__(self, host: _SparseDataHandler, device):
+        super().__init__(host.data)
+        self.host = host
+        self.device = torch.device(device)
+        self.col_ptr = self.rows = self.values = None
+        self._col_ptr_host = None
+
+    @property
+    def dtype(self):
+        return self.host.dtype
+
+    def density(self):
+        return self.host.density()
+
+    def footprint(self):
+        return self.host.footprint()
+
+    def load(self) -> None:
+        """Upload the matrix and order it by column on the device: a CSC as
+        it is, a CSR by one stable sort of its column indices, which keeps
+        each column's rows in ascending order.  Syncs with the host once
+        (the column pointer's host copy), more only for a CSC whose rows
+        are out of order within a column or a matrix with duplicates."""
+        m, dev = self.data, self.device
+        wide = _wide_rows(m.shape, m.nnz)
+        values = torch.from_numpy(m.data.view(np.int16) if m.data.dtype == np.uint16
+                                  else m.data)
+        if isinstance(self.host, CSRDataHandler):
+            cols, perm = torch.sort(torch.from_numpy(m.indices).to(dev), stable=True)
+            col_ptr = torch.searchsorted(
+                cols, torch.arange(m.shape[1] + 1, dtype=cols.dtype, device=dev)
+            )
+            del cols
+            indptr = torch.from_numpy(m.indptr).to(dev, torch.int64)
+            rows = torch.searchsorted(indptr, perm, right=True, out_int32=not wide) - 1
+            del indptr
+            values = values.to(dev)[perm]
+            del perm
+        else:
+            col_ptr = torch.from_numpy(m.indptr).to(dev, torch.int64)
+            rows = torch.from_numpy(m.indices).to(dev, torch.int64 if wide else torch.int32)
+            values = values.to(dev, copy=True)  # changed in place below
+        if m.data.dtype == np.uint16:  # int16 bits -> the uint16 value in int32
+            values = values.to(torch.int32).bitwise_and_(0xFFFF)
+        elif values.is_floating_point():
+            values.add_(0)  # -0.0 -> +0.0
+        flags = torch.cat([_disorder(rows, col_ptr), col_ptr]).cpu().numpy()
+        n_unsorted, n_dup = int(flags[0]), int(flags[1])
+        if n_unsorted:
+            rows, values = _sort_within_columns(rows, values, col_ptr, m.shape[0])
+            n_dup = int(_disorder(rows, col_ptr)[1])
+        if n_dup:
+            rows, values, col_ptr = _sum_duplicates(
+                rows, values, col_ptr, n_dup, uint16=m.data.dtype == np.uint16
+            )
+            flags = np.concatenate([flags[:2], col_ptr.cpu().numpy()])
+        self.col_ptr, self.rows, self.values = col_ptr, rows, values
+        self._col_ptr_host = flags[2:]
+
+    def release(self) -> None:
+        """Free the device copy."""
+        self.col_ptr = self.rows = self.values = None
+        self._col_ptr_host = None
+
+    def fetch_tile(self, lb, ub):
+        s, e = int(self._col_ptr_host[lb]), int(self._col_ptr_host[ub])
+        cols = torch.repeat_interleave(
+            torch.arange(ub - lb, dtype=torch.int32, device=self.device),
+            torch.diff(self.col_ptr[lb : ub + 1]), output_size=e - s,
+        )
+        return self._dense(self.rows[s:e], cols, self.values[s:e], ub - lb)
+
+    def fetch_columns(self, idx):
+        idx = np.asarray(idx, dtype=np.int64)
+        starts = self._col_ptr_host[idx]
+        lens = self._col_ptr_host[idx + 1] - starts
+        total = int(lens.sum())
+        # Entry j of requested column k sits at starts[k] + j - (entries
+        # of the columns before k): one small copy carries both arrays.
+        plan = torch.from_numpy(np.stack([starts - (np.cumsum(lens) - lens), lens]))
+        plan = plan.to(self.device)
+        cols = torch.repeat_interleave(
+            torch.arange(idx.size, dtype=torch.int32, device=self.device), plan[1],
+            output_size=total,
+        )
+        pos = torch.arange(total, device=self.device) + plan[0][cols]
+        return self._dense(self.rows[pos], cols, self.values[pos], idx.size)
+
+    def _dense(self, rows, cols, values, width: int) -> torch.Tensor:
+        """Dense (n_rows, width) tile of entries at unique (row, col)."""
+        out = torch.zeros((self.shape[0], width), dtype=values.dtype, device=self.device)
+        flat = rows.to(torch.int64, copy=True).mul_(width).add_(cols)
+        out.view(-1).index_put_((flat,), values)
+        return out
+
+
+def _column_starts(col_ptr, nnz: int) -> torch.Tensor:
+    """(nnz,) flags of the entries that begin a column."""
+    starts = torch.zeros(nnz + 1, dtype=torch.bool, device=col_ptr.device)
+    return starts.index_fill_(0, col_ptr, True)[:nnz]
+
+
+def _disorder(rows, col_ptr) -> torch.Tensor:
+    """(entries whose row is below the previous entry's in the same column,
+    entries that repeat the previous entry's row in the same column)."""
+    inner = ~_column_starts(col_ptr, rows.numel())[1:]  # entry i >= 1 continues a column
+    prev, cur = rows[:-1], rows[1:]
+    return torch.stack([((cur < prev) & inner).sum(), ((cur == prev) & inner).sum()])
+
+
+def _sort_within_columns(rows, values, col_ptr, n_rows: int):
+    """Entries of each column by ascending row, duplicates in storage order
+    (a stable sort of the (column, row) key)."""
+    n_cols = col_ptr.numel() - 1
+    col = torch.repeat_interleave(
+        torch.arange(n_cols, device=rows.device), torch.diff(col_ptr), output_size=rows.numel()
+    )
+    _, perm = torch.sort(col.mul_(n_rows).add_(rows), stable=True)
+    return rows[perm], values[perm]
+
+
+def _sum_duplicates(rows, values, col_ptr, n_dup: int, uint16: bool):
+    """Collapse each run of entries at one (row, column) into one entry:
+    ``((v0 + v1) + v2) + ...`` in storage order and in the stored dtype
+    (uint16's wrap-around kept), as ``toarray`` accumulates them."""
+    nnz = rows.numel()
+    run_start = _column_starts(col_ptr, nnz)
+    run_start[1:] |= rows[1:] != rows[:-1]
+    run_id = torch.cumsum(run_start, 0) - 1
+    first = torch.searchsorted(run_id, torch.arange(nnz - n_dup, device=rows.device))
+    length = torch.diff(first, append=first.new_tensor([nnz]))
+    acc = values[first]
+    for k in range(1, int(length.max())):
+        more = length > k
+        acc = torch.where(more, acc + values[torch.where(more, first + k, first)], acc)
+    if uint16:
+        acc.bitwise_and_(0xFFFF)
+    return rows[first], acc, torch.searchsorted(first, col_ptr)
 
 
 # -- backed (out-of-core) inputs ---------------------------------------------
