@@ -13,7 +13,8 @@ Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit), the nvcc build of every
    kernel in ``illico_tpu_torch/csrc`` and the C++ build of the native tail
-   (``csrc/tail.cpp``), with its compiler line;
+   (``csrc/tail.cpp``), with its compiler line; the tail must report an
+   OpenMP build (its default thread count depends on it);
 2. the histogram kernel (``csrc/hist_kernel.cu``) against its plain torch
    version on the card, bit for bit: V in {128, 256, 512}, raw and log1p
    tables, T=1000, 2000 groups including a 1-cell group, adversarial values
@@ -28,7 +29,8 @@ Phases, each printing its own lines:
    (one auto tile; the K562-essential scale cut from 8,000 genes), dense
    float32 Poisson counts with ~90% zeros from a fixed numpy seed, one timed
    public-API call each for OVO and OVR with the native tail on one thread
-   and one each with ``ILLICO_TPU_TAIL_THREADS`` at the host's core count,
+   (``ILLICO_TPU_TAIL_THREADS=1``) and one each at the default count (the
+   runner's, in ``tail_threads``), frames bit-equal,
    with the per-stage split and a scipy spot check; every tile must take
    the native tail; then the kernel's own time at that shape (CUDA events)
    beside its memory bound, its plain version and ``torch.bincount``;
@@ -104,7 +106,11 @@ Phases, each printing its own lines:
     every column with a count past 511 (and only those) in the sort
     fallback, their share within ``FALLBACK_BAND``, every tile native, K1
     launched by the warm-up and once per tile, 50 pairs against scipy (15 on
-    fallback columns, 15 on columns whose maximum is in 128-510), then one
+    fallback columns, 15 on columns whose maximum is in 128-510), the same
+    call at ``ILLICO_TPU_TAIL_THREADS=1`` bit-equal beside it (tail and
+    wall of both), one call under ``torch.profiler`` whose trace says when
+    the first tail starts against the end of the last tile's contraction on
+    the card (``tail_overlap.py``), then one
     128-column and one 512-column chunk of the fallback's columns (padded
     with the columns of next largest maximum) through the sort engine alone,
     timed, the wide one's statistics against the CPU's bit for bit, and the
@@ -243,9 +249,11 @@ def phase_build():
     print(f"[1] native tail in {time.perf_counter() - t0:.2f} s: "
           f"{command or 'already built'} -> "
           f"{os.path.relpath(native.BUILD_INFO['path'])}", flush=True)
-    if command and "-fopenmp" not in command:
-        print("[1]   built WITHOUT OpenMP: ILLICO_TPU_TAIL_THREADS will have no effect",
-              flush=True)
+    if not native.openmp_enabled():
+        raise AssertionError("the native tail was built without OpenMP: its consume loop "
+                             "would run on one thread whatever the thread count says")
+    print(f"[1] native tail built with OpenMP; default thread count "
+          f"{native.tail_threads()} (host input: {native.tail_threads(busy=2)})", flush=True)
 
 
 def phase_kernel(stats):
@@ -449,7 +457,7 @@ def full_call(tag, X, labels, reference, shard_tiles=1, **kw):
     rec = {
         "wall_s": wall, "tests_per_s": n_groups * n_genes / wall,
         "engine": df.attrs["engine"], "consume_path": df.attrs["consume_path"],
-        "tail_threads": int(os.environ.get("ILLICO_TPU_TAIL_THREADS", "1")),
+        "tail_threads": df.attrs["tail_threads"],
         "stage_s": df.attrs["stage_seconds"],
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -476,16 +484,16 @@ def phase_full(stats, ctx):
     # tiles (default 8 GiB at most) so it does not split the tile in two.
     os.environ["ILLICO_TPU_HOST_BUDGET"] = str(16 << 30)
     x, labels, pairs = full_counts(ctx)
-    cores = os.cpu_count() or 1
     torch.cuda.synchronize()
     he.hist_pass.launches = 0  # count the main path's launches only
     runs = {}
-    for threads in (1, cores):
+    for threads in (1, None):  # one thread, then the default count
         for reference in ("non-targeting", None):
             tag = "OVO" if reference else "OVR"
             with environ("ILLICO_TPU_TAIL_THREADS", threads):
-                df, rec = full_call(f"[5] {tag} tail_threads={threads}", x, labels, reference)
-            runs[f"{tag} x{threads}"] = rec
+                df, rec = full_call(f"[5] {tag} tail_threads={threads or 'default'}", x,
+                                    labels, reference)
+            runs[f"{tag} x{rec['tail_threads']}"] = rec
             if threads == 1:
                 scipy_check(f"full {tag}", df, x, labels, reference, False,
                             [(g, j) for g, j in pairs if g != reference])
@@ -498,7 +506,8 @@ def phase_full(stats, ctx):
         raise AssertionError(f"main path launched the hist kernel {launches} times, expected 8")
     print(f"[5] hist kernel launches on the main path: {launches} (per call: the "
           f"warm-up and one per tile); every tile took the native tail; frames "
-          f"bit-equal at 1 and {cores} tail threads; scipy spot checks pass", flush=True)
+          f"bit-equal at 1 and {rec['tail_threads']} (the default) tail threads; scipy "
+          f"spot checks pass", flush=True)
     stats["full"] = runs
 
     # The kernel alone at the main path's shape.
@@ -1424,6 +1433,7 @@ def heavy_call(tag, X, labels, is_log1p, shape, route="device"):
         "input_route": df.attrs["input_route"],
         "launches": he.hist_pass.launches, "tiles": n_tiles,
         "n_fallback_cols": df.attrs["n_fallback_cols"],
+        "tail_threads": df.attrs["tail_threads"],
         "stage_s": df.attrs["stage_seconds"], "consume_path": df.attrs["consume_path"],
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else None,
     }
@@ -1498,6 +1508,7 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
 
     from benchmarks_torch.datagen import heavy_tailed_counts, host_csr, perturbation_labels
     from benchmarks_torch.run import load_config
+    from illico_tpu_torch import asymptotic_wilcoxon_arrays
     from illico_tpu_torch.models import wilcoxon
     from illico_tpu_torch.ops.hist_engine import MAX_V
     from illico_tpu_torch.ops.rank_engine import make_tile_fn
@@ -1535,7 +1546,9 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
     raw_cols = {j: host[:, i] for i, j in enumerate(picked)}
 
     # -- 12a: raw counts, CUDA tensor -----------------------------------------
-    df_a, rec_a, cols_a = heavy_call("[12a] raw counts, CUDA tensor", xd, labels, False, shape)
+    with environ("ILLICO_TPU_TAIL_THREADS", None):  # the default thread count
+        df_a, rec_a, cols_a = heavy_call("[12a] raw counts, CUDA tensor", xd, labels, False,
+                                         shape)
     n_tiles = -(-n_genes // 2048)
     if rec_a["tiles"] != n_tiles:
         raise AssertionError(f"[12a] {rec_a['tiles']} tiles, expected {n_tiles}")
@@ -1543,6 +1556,40 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
         raise AssertionError(f"[12a] fallback columns {cols_a.size}: expected every column "
                              f"past the table ({past.size}), within {FALLBACK_BAND}")
     scipy_check("[12a]", df_a, raw_cols, labels, "non-targeting", False, pairs)
+    # The tail at one thread beside the default count, bit-equal; then where
+    # the tails ran against the card, from one profiled call.
+    with environ("ILLICO_TPU_TAIL_THREADS", 1):
+        df_1, rec_1, _ = heavy_call("[12a] raw counts, CUDA tensor, tail_threads=1", xd,
+                                    labels, False, shape)
+    if not np.array_equal(df_1.values.view(np.uint64), df_a.values.view(np.uint64)):
+        raise AssertionError("[12a] the frame at one tail thread differs from the default's")
+    del df_1
+    print(f"[12a] tail {rec_a['stage_s']['tail']:.4f} s, wall {rec_a['wall_s']:.4f} s at the "
+          f"default {rec_a['tail_threads']} threads; tail {rec_1['stage_s']['tail']:.4f} s, "
+          f"wall {rec_1['wall_s']:.4f} s at 1 thread; frames bit-equal", flush=True)
+    overlap = None
+    if DEV == "cuda":
+        from tail_overlap import profiled_call
+
+        profile_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                   "illico_tpu_torch", "_build", "profile")
+        asymptotic_wilcoxon_arrays(xd[:2000, :8].contiguous(), labels[:2000],  # start-up
+                                   reference=None, progress=False, profile_dir=profile_dir)
+        with environ("ILLICO_TPU_TAIL_THREADS", None):
+            df_p, wall_p, overlap = profiled_call(xd, labels, "non-targeting", profile_dir)
+        if not np.array_equal(df_p.values.view(np.uint64), df_a.values.view(np.uint64)):
+            raise AssertionError("[12a] the profiled call's frame differs")
+        del df_p
+        tiles = overlap["tiles"]
+        print(f"[12a] profiled call ({wall_p:.4f} s): the first tail starts at "
+              f"{tiles[0]['tail_start_s']:.4f} s, the last tile's contraction ends on the card "
+              f"at {tiles[-1]['contract_device_end_s']:.4f} s (lead "
+              f"{overlap['first_tail_lead_s']:.4f} s); the card busy "
+              f"{overlap['tail_device_busy_share']:.4f} of the tails' "
+              f"{overlap['tail_host_s']:.4f} s; {overlap['launch']['n']} launches held the "
+              f"host {overlap['launch']['host_s']:.4f} s (longest "
+              f"{overlap['launch']['max_ms']:.3f} ms); per tile: "
+              f"{json.dumps(tiles)}", flush=True)
     # Fallback chunks alone: the sort engine's packed tile function on the
     # card, as the fallback calls it, at the fallback's 128-column width and
     # at the sort engine's 512-column cap (the fallback columns, then those

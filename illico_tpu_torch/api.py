@@ -11,7 +11,8 @@ The DataFrame's ``attrs["stage_seconds"]`` holds the run's per-stage
 seconds (see :class:`illico_tpu_torch.models.wilcoxon.RunResult`),
 ``attrs["stage_seconds_by_device"]`` the device stages per device,
 ``attrs["consume_path"]`` how many tiles the native tail and numpy consumed,
-and ``attrs["input_route"]`` where the tiles were made (``"device"`` or
+``attrs["tail_threads"]`` the native tail's thread count, and
+``attrs["input_route"]`` where the tiles were made (``"device"`` or
 ``"host"``).
 """
 
@@ -151,8 +152,11 @@ def asymptotic_wilcoxon(
 
     ``df.attrs`` carries ``stage_seconds``, ``stage_seconds_by_device``,
     ``engine``, ``n_fallback_cols``, ``consume_path`` (shard tiles
-    consumed by the native tail and by numpy) and ``input_route``
-    (``"device"`` when the tiles were made on the device, else ``"host"``).
+    consumed by the native tail and by numpy), ``tail_threads`` (the native
+    tail's threads: ``ILLICO_TPU_TAIL_THREADS``, else the cores this
+    process may use, less the prefetch threads on host input) and
+    ``input_route`` (``"device"`` when the tiles were made on the device,
+    else ``"host"``).
     """
     if alternative not in ("two-sided", "greater", "less"):
         raise ValueError(f"Unsupported alternative hypothesis: {alternative}")
@@ -203,6 +207,7 @@ def asymptotic_wilcoxon(
     df.attrs["engine"] = runner.engine
     df.attrs["n_fallback_cols"] = res.n_fallback_cols
     df.attrs["consume_path"] = dict(res.consume_path)
+    df.attrs["tail_threads"] = res.tail_threads
     df.attrs["input_route"] = runner.input_route
     return df
 

@@ -22,6 +22,16 @@ enum Alternative : int32_t { kTwoSided = 0, kGreater = 1, kLess = 2 };
 
 extern "C" {
 
+// 1 when this library was compiled with OpenMP (the n_threads arguments
+// take effect), else 0.
+int32_t illico_openmp(void) {
+#ifdef _OPENMP
+  return 1;
+#else
+  return 0;
+#endif
+}
+
 // p[g, j] from U[g, j], tie[g, j], with per-group n_ref/n_tgt.
 // n[g] = n_ref[g] + n_tgt[g] is formed as in the numpy implementation, so
 // both associate the arithmetic alike.
@@ -257,9 +267,8 @@ void illico_consume_tile(
 
   // Group rows are independent (disjoint `results` slices, identical
   // per-iteration arithmetic), so parallelizing this loop is bit-exact for
-  // any thread count.  Opt-in (ILLICO_TPU_TAIL_THREADS; default 1): the
-  // prefetch threads use the host's other cores.  The pragma is inert
-  // unless compiled with -fopenmp.
+  // any thread count.  The caller picks the count (native/__init__.py:
+  // tail_threads).  The pragma is inert unless compiled with -fopenmp.
 #ifdef _OPENMP
 #pragma omp parallel for schedule(static) num_threads(n_threads) \
     if (n_threads > 1)

@@ -100,6 +100,8 @@ class RunResult:
     # (sort-engine recompute) and "precompile" (the warm-up, when run).
     stage_seconds: dict
     n_fallback_cols: int
+    # Threads of the native tail (native.tail_threads for this run's route).
+    tail_threads: int
     # Tiles of the main loop (per gene shard under a mesh) consumed by the
     # native library and by numpy.
     consume_path: dict = dataclasses.field(default_factory=dict)
@@ -1096,6 +1098,12 @@ class WilcoxonRunner:
         statics = getattr(self.tile_fn, "_statics", {})
         fc_split = int(statics.get("fc_split_code", -1))
         u2_split = int(statics.get("u2_split_code", -1))
+        from illico_tpu_torch.native import consume_tile_native, tail_threads
+
+        n_workers = max(2, self.n_threads)  # prefetch threads
+        # The tail's threads: the host's cores, less the prefetch threads
+        # that run beside it on host input.
+        n_tail = tail_threads(busy=0 if self._device_resident else n_workers)
 
         def consume_stats(cols, out):
             """Scatter one unpacked host dict (numpy) into the result arrays
@@ -1136,9 +1144,8 @@ class WilcoxonRunner:
                 use_continuity=self.use_continuity,
                 tie_correct=self.tie_correct,
                 alternative=self.alternative,
+                n_threads=n_tail,
             )
-
-        from illico_tpu_torch.native import consume_tile_native
 
         consume_path = {"native": 0, "numpy": 0}
 
@@ -1156,6 +1163,7 @@ class WilcoxonRunner:
                     buf, spec, counts, int(info.ref_code), w_cols,
                     self.alternative, self.use_continuity, self.tie_correct,
                     results, lb, fc_split_code=fc_split, u2_split_code=u2_split,
+                    n_threads=n_tail,
                 ):
                     if bad.size:
                         overflow_cols.extend((lb + bad).tolist())
@@ -1169,7 +1177,6 @@ class WilcoxonRunner:
             "fetch": 0.0, "tail": 0.0, "fallback": 0.0,
         }
         self._precompile_seconds = 0.0
-        n_workers = max(2, self.n_threads)  # prefetch threads
         runs = [_ShardRun(shard, _StageClock(shard.device)) for shard in self.shards]
         for shard in self.shards:
             shard.wait_for_current_streams()
@@ -1197,18 +1204,23 @@ class WilcoxonRunner:
         items = [(lb, ub, runs[j]) for lb, ub, j in self._work_items()]
         t_loop0 = time.perf_counter()
         if self._device_resident:
-            # The input is on a device and each tile's result is small:
-            # dispatch every tile up front (all asynchronous), then consume
-            # in order while the devices drain their queues.
-            pending = []
+            # The input is on a device: dispatch one tile (all its shards)
+            # ahead of the pulls, so the host consumes tile i while the
+            # devices work on tile i+1.  Dispatching every tile first
+            # overlaps nothing: a hist tile queues over a thousand small
+            # launches, the launch queue fills, and the host waits in it
+            # until the devices have nearly drained.
+            pending = deque()  # (lb, ub, shard run, host buffer, done event)
             for lb, ub, run in items:
                 with run.shard.on():
                     run.clock.mark(None)
                 x = self._place_device_tile(self._fetch(lb, ub), run.shard, self._shard_width)
                 pending.append((lb, ub, run, *dispatch(x, run)))
                 del x
-            for item in pending:
-                pull(*item)
+                if len(pending) > len(runs):
+                    pull(*pending.popleft())
+            while pending:
+                pull(*pending.popleft())
         else:
             # Fetches in flight and dispatches ahead of the pulls, in shard
             # tiles: as many full tiles' worth as on one device.
@@ -1282,5 +1294,5 @@ class WilcoxonRunner:
         return RunResult(
             stacked=results, stage_seconds=stage_seconds,
             n_fallback_cols=n_fallback, consume_path=consume_path,
-            stage_seconds_by_device=by_device,
+            stage_seconds_by_device=by_device, tail_threads=n_tail,
         )

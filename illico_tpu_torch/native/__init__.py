@@ -8,6 +8,10 @@ by a hash of the source and moved into place atomically, then loaded with
 fall back to the numpy implementations in :mod:`illico_tpu_torch.stats` and
 in the runner, and the runner reports which path each tile took
 (``consume_path``).  ``ILLICO_TPU_NO_NATIVE=1`` disables the library.
+
+The consume loop runs on :func:`tail_threads` OpenMP threads (bit-equal at
+any count): by default the cores this process may use, less the threads
+that run beside it; ``ILLICO_TPU_TAIL_THREADS`` sets the count.
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ __all__ = [
     "BUILD_INFO",
     "consume_tile_native",
     "native_available",
+    "openmp_enabled",
     "pvalue_tail_native",
+    "tail_threads",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -65,9 +71,9 @@ def _build(plain: bool = False, build_dir: Path | None = None) -> Path | None:
         # leave a truncated library at the final path.
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         # OpenMP first (the consume loop over groups parallelizes bit for
-        # bit; inert at the default of one thread): with $CXX, then with the
-        # compilers on PATH, since a toolchain named by CXX may lack its
-        # OpenMP runtime where the system's has it.  A plain build last.
+        # bit): with $CXX, then with the compilers on PATH, since a
+        # toolchain named by CXX may lack its OpenMP runtime where the
+        # system's has it.  A plain build last.
         compilers = list(dict.fromkeys(
             c for c in (os.environ.get("CXX"), "g++", "c++") if c
         ))
@@ -146,6 +152,8 @@ def _load():
 def _bind(path: Path):
     """dlopen + declare the ctypes signatures (raises OSError on failure)."""
     lib = ctypes.CDLL(str(path))
+    lib.illico_openmp.restype = ctypes.c_int32
+    lib.illico_openmp.argtypes = []
     fn = lib.illico_pvalue_tail
     fn.restype = None
     fn.argtypes = [
@@ -262,23 +270,27 @@ def consume_tile_native(
     col0: int,
     fc_split_code: int = -1,
     u2_split_code: int = -1,
+    n_threads: int | None = None,
 ) -> bool:
     """Fused consume of one packed tile buffer into ``results``.
 
     ``spec`` maps key -> (shape, dtype, offset, nbytes) for the packed
     buffer (any engine's layout); ``results`` is the (G, n_genes, 3) float64
     output.  ``fc_split_code >= 0`` marks the group whose expression-sum row
-    travels as the separate per-column ``fc_split_col`` array.  Returns
-    False when the native library (or a needed key) is unavailable so the
-    caller can fall back to numpy.
+    travels as the separate per-column ``fc_split_col`` array.
+    ``n_threads`` threads share the groups (default :func:`tail_threads`).
+    Returns False when the native library (or a needed key) is unavailable
+    so the caller can fall back to numpy.
     """
     lib = _load()
     if lib is None or alternative not in _ALTERNATIVES:
         return False
+    if n_threads is None:
+        n_threads = tail_threads()
     if "k" in spec:  # nnz-split OVO wire
         return _consume_ksplit(
             lib, buf, spec, counts, ref_code, w, alternative,
-            use_continuity, tie_correct, results, col0, fc_split_code,
+            use_continuity, tie_correct, results, col0, fc_split_code, n_threads,
         )
     is_ovr = ref_code < 0
     u2_key = "R2" if is_ovr else "U2"
@@ -341,14 +353,14 @@ def consume_tile_native(
         results.ctypes.data_as(dp),
         ctypes.c_int64(col0), ctypes.c_int64(results.shape[1]),
         scratch.ctypes.data_as(dp),
-        ctypes.c_int32(_tail_threads()),
+        ctypes.c_int32(n_threads),
     )
     return True
 
 
 def _consume_ksplit(
     lib, buf, spec, counts, ref_code, w, alternative, use_continuity,
-    tie_correct, results, col0, fc_split_code,
+    tie_correct, results, col0, fc_split_code, n_threads,
 ) -> bool:
     """Dispatch the nnz-split OVO wire to illico_consume_tile_ksplit."""
     needed = {
@@ -418,27 +430,42 @@ def _consume_ksplit(
         results.ctypes.data_as(dp),
         ctypes.c_int64(col0), ctypes.c_int64(results.shape[1]),
         scratch.ctypes.data_as(dp),
-        ctypes.c_int32(_tail_threads()),
+        ctypes.c_int32(n_threads),
     )
     return True
 
 
-def _tail_threads() -> int:
+def tail_threads(busy: int = 0) -> int:
     """Thread count for the native consume loop (bit-exact at any value).
 
-    Defaults to 1, as in the reference package: the prefetch threads and
-    the thread that drives the device share the host's cores.  Set
-    ``ILLICO_TPU_TAIL_THREADS`` to cut the host statistical tail on a host
-    with cores to spare.
+    ``ILLICO_TPU_TAIL_THREADS`` when it holds an integer (at least 1 is
+    used).  Otherwise the cores this process may run on
+    (``os.sched_getaffinity``, else ``os.cpu_count``) less ``busy``
+    threads that work beside the tail (the prefetch threads of host input),
+    and at least 1.  The reference package defaults to 1 thread, chosen for
+    a one-core host.
     """
     try:
-        return max(1, int(os.environ.get("ILLICO_TPU_TAIL_THREADS", "1")))
-    except ValueError:
-        return 1
+        return max(1, int(os.environ["ILLICO_TPU_TAIL_THREADS"]))
+    except (KeyError, ValueError):
+        pass
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity call on this platform
+        cores = os.cpu_count() or 1
+    return max(1, cores - busy)
 
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def openmp_enabled() -> bool:
+    """Was the loaded library built with OpenMP?  Without it the consume
+    loop runs on one thread whatever :func:`tail_threads` says.  False when
+    no library is loaded."""
+    lib = _load()
+    return lib is not None and bool(lib.illico_openmp())
 
 
 def pvalue_tail_native(
@@ -450,8 +477,11 @@ def pvalue_tail_native(
     tie_correct: bool,
     alternative: str,
     out: np.ndarray | None = None,
+    n_threads: int | None = None,
 ) -> np.ndarray | None:
-    """Fused p-value tail; returns None if the native library is unavailable."""
+    """Fused p-value tail on ``n_threads`` threads (default
+    :func:`tail_threads`); returns None if the native library is
+    unavailable."""
     lib = _load()
     if lib is None or alternative not in _ALTERNATIVES:
         return None
@@ -474,6 +504,6 @@ def pvalue_tail_native(
         ctypes.c_int32(1 if use_continuity else 0),
         ctypes.c_int32(1 if tie_correct else 0),
         out.ctypes.data_as(dp),
-        ctypes.c_int32(_tail_threads()),
+        ctypes.c_int32(tail_threads() if n_threads is None else n_threads),
     )
     return out

@@ -48,6 +48,7 @@ def pvalues_from_stats(
     tie_correct: bool = True,
     alternative: str = "two-sided",
     prefer_native: bool = True,
+    n_threads: int | None = None,
 ) -> np.ndarray:
     """Vectorized asymptotic Mann-Whitney p-values.
 
@@ -62,6 +63,8 @@ def pvalues_from_stats(
     tie_correct : apply the tie correction to sigma.
     alternative : 'two-sided' | 'greater' | 'less' — hypothesis on ref vs tgt.
     prefer_native : use the C++ tail when it is available.
+    n_threads : the C++ tail's threads (default
+        :func:`illico_tpu_torch.native.tail_threads`).
 
     Returns
     -------
@@ -84,7 +87,8 @@ def pvalues_from_stats(
         from illico_tpu_torch.native import pvalue_tail_native
 
         res = pvalue_tail_native(
-            U, tie_sum, n_ref, n_tgt, use_continuity, tie_correct, alternative
+            U, tie_sum, n_ref, n_tgt, use_continuity, tie_correct, alternative,
+            n_threads=n_threads,
         )
         if res is not None:
             return res

@@ -2,8 +2,8 @@
 
 A CPU tensor is host input (the dense handler on its numpy view).  A CUDA
 tensor is device-resident input; its code path (``DeviceDenseDataHandler``:
-column slices on the device, device-side sampling with one pull, every tile
-dispatched up front, no staging) does not depend on the device being a CUDA
+column slices on the device, device-side sampling with one pull, each tile
+dispatched one tile ahead of its consume, no staging) does not depend on the device being a CUDA
 one, so these tests drive it with a CPU tensor by registering that handler
 for ``torch.Tensor``.  Either way the frame equals the ``ndarray`` input's
 exactly.
@@ -115,6 +115,54 @@ def test_device_resident_path_gives_the_ndarray_frame(case, reference, resident)
     assert got.attrs["consume_path"] == {"native": 3, "numpy": 0}
     if case == "hist-overflow":
         assert got.attrs["n_fallback_cols"] == 2
+
+
+@pytest.mark.parametrize("devices", [None, 2, (2, 1)], ids=["one", "gene-mesh", "cell-mesh"])
+@pytest.mark.parametrize("reference", ["p0", None], ids=["ovo", "ovr"])
+def test_device_resident_loop_consumes_one_tile_behind(reference, devices, resident,
+                                                       monkeypatch):
+    """The device-resident loop dispatches tile i+1 before it consumes tile
+    i (so the host tail runs while the devices work), and consumes tile i
+    before it dispatches tile i+2; under a gene mesh each shard's next
+    tile is dispatched before its tile is consumed.  The frame equals the
+    host-input frame bit for bit."""
+    import illico_tpu_torch.native as native
+
+    width = 128
+    x, groups = _counts(seed=4, t=4 * width - 16, hot=True)  # 4 tiles, the last short
+    kw = dict(reference=reference, engine="hist", batch_size=width, devices=devices)
+    want = _run(x, groups, **kw)
+    order = []
+    fetch, consume = WilcoxonRunner._fetch, native.consume_tile_native
+
+    def spy_fetch(self, lb, ub):
+        order.append(("dispatch", lb))
+        return fetch(self, lb, ub)
+
+    def spy_consume(*args, **kwargs):
+        order.append(("pull", args[9]))  # col0
+        return consume(*args, **kwargs)
+
+    monkeypatch.setattr(WilcoxonRunner, "_fetch", spy_fetch)
+    monkeypatch.setattr(native, "consume_tile_native", spy_consume)
+    got = _run(torch.from_numpy(x), groups, **kw)
+    assert got.attrs["input_route"] == "device"
+    _assert_same_frame(got, want)
+    n_items = got.attrs["consume_path"]["native"]
+    assert got.attrs["consume_path"]["numpy"] == 0
+    assert len(order) == 2 * n_items and n_items >= 4
+    at = {item: k for k, item in enumerate(order)}
+    assert len(at) == len(order)  # each shard tile dispatched and consumed once
+    for (kind, lb), k in at.items():
+        if kind == "dispatch":
+            continue
+        tile, offset = divmod(lb, width)
+        assert at[("dispatch", lb)] < k
+        if tile + 1 < 4:  # the shard's next tile is on its device before this tail
+            assert at[("dispatch", (tile + 1) * width + offset)] < k
+        for (kind2, lb2), k2 in at.items():  # no tile two ahead before this tail
+            if kind2 == "dispatch" and lb2 // width >= tile + 2:
+                assert k < k2
 
 
 def test_device_resident_refuses_csort_and_auto_skips_it(resident):

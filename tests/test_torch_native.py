@@ -6,8 +6,12 @@ within rtol 1e-14) for OVO/OVR x three alternatives x continuity x tie
 correction; it decodes a buffer packed by the JAX package and one packed by
 the port from the same statistics to identical results, the split-word
 boundary and f96 cases of ``tests/utils/test_native.py`` included; it is
-bit-equal at 1 and 4 threads; a truncated cached library is rebuilt; and with
-the library disabled a run reports no native tile and returns the same frame.
+bit-equal at 1 and 4 threads and at the default count; a truncated cached
+library is rebuilt; and with the library disabled a run reports no native
+tile and returns the same frame.  The default thread count is the cores the
+process may use (less the prefetch threads on host input), which
+``ILLICO_TPU_TAIL_THREADS`` overrides; the runner passes its count to both
+native entry points.
 """
 
 import hashlib
@@ -31,6 +35,29 @@ from illico_tpu_torch.stats import (  # noqa: E402
     fold_change_from_summed_expr,
     pvalues_from_stats,
 )
+
+
+@pytest.fixture
+def cores(monkeypatch):
+    """``cores(n)``: the process may run on ``n`` cores, and
+    ``ILLICO_TPU_TAIL_THREADS`` is unset."""
+    monkeypatch.delenv("ILLICO_TPU_TAIL_THREADS", raising=False)
+
+    def set_cores(n):
+        monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(n)), raising=False)
+
+    return set_cores
+
+
+@pytest.fixture
+def resident(monkeypatch):
+    """Treat every tensor as device-resident input, CPU tensors included."""
+    from illico_tpu_torch.utils.registry import DeviceDenseDataHandler, data_handler_registry
+
+    saved = dict.__getitem__(data_handler_registry, torch.Tensor)
+    data_handler_registry[torch.Tensor] = DeviceDenseDataHandler
+    yield
+    data_handler_registry[torch.Tensor] = saved
 
 
 @pytest.fixture
@@ -89,7 +116,8 @@ def test_default_library_lives_in_package_build_dir():
     assert native.native_available()
     path = native.BUILD_INFO["path"]
     assert os.path.dirname(path) == str(native.BUILD_DIR)
-    assert native._tail_threads() >= 1
+    assert native.tail_threads() >= 1
+    assert native.openmp_enabled()  # g++ with -fopenmp builds here
 
 
 @pytest.mark.parametrize("tie_correct", [True, False], ids=["tie", "no-tie"])
@@ -114,12 +142,108 @@ def test_native_consume_matches_numpy(reference, alternative, use_continuity, ti
 def test_native_consume_threaded_is_bit_exact(reference, engine, monkeypatch):
     X, groups = _problem(seed=5, n=2000, t=300)
     kw = dict(reference=reference, engine=engine, batch_size=128)
+    monkeypatch.setenv("ILLICO_TPU_TAIL_THREADS", "1")
     serial = _run(X, groups, **kw)
     assert serial.attrs["consume_path"] == {"native": 3, "numpy": 0}
+    assert serial.attrs["tail_threads"] == 1
     monkeypatch.setenv("ILLICO_TPU_TAIL_THREADS", "4")
-    assert native._tail_threads() == 4
+    assert native.tail_threads() == 4
     threaded = _run(X, groups, **kw)
+    assert threaded.attrs["tail_threads"] == 4
     np.testing.assert_array_equal(serial.values, threaded.values)
+
+
+@pytest.mark.parametrize("engine", ["hist", "sort", "csort"])
+@pytest.mark.parametrize("reference", ["p0", None], ids=["ovo", "ovr"])
+def test_native_consume_default_threads_is_bit_exact(reference, engine, cores, monkeypatch):
+    """The default count (6 cores less 2 prefetch threads) and 1 thread give
+    the same frame, the sort fallback's p-values included."""
+    cores(6)
+    X, groups = _problem(seed=5, n=2000, t=300)
+    X[np.random.RandomState(1).randint(0, 2000, 40), 150] = 700.0  # past the table
+    kw = dict(reference=reference, engine=engine, batch_size=128)
+    default = _run(X, groups, **kw)
+    assert default.attrs["tail_threads"] == 4
+    assert default.attrs["consume_path"] == {"native": 3, "numpy": 0}
+    if engine == "hist":
+        assert default.attrs["n_fallback_cols"] >= 1
+    monkeypatch.setenv("ILLICO_TPU_TAIL_THREADS", "1")
+    serial = _run(X, groups, **kw)
+    assert serial.attrs["tail_threads"] == 1
+    np.testing.assert_array_equal(default.values, serial.values)
+
+
+@pytest.mark.parametrize(
+    "n_cores, busy, want", [(8, 0, 8), (8, 2, 6), (3, 2, 1), (2, 4, 1), (1, 0, 1)]
+)
+def test_default_tail_threads_is_the_affinity_count(n_cores, busy, want, cores):
+    cores(n_cores)
+    assert native.tail_threads(busy) == want
+
+
+def test_default_tail_threads_without_affinity_is_the_cpu_count(monkeypatch):
+    monkeypatch.delenv("ILLICO_TPU_TAIL_THREADS", raising=False)
+    monkeypatch.delattr(os, "sched_getaffinity", raising=False)
+    monkeypatch.setattr(os, "cpu_count", lambda: 5)
+    assert native.tail_threads() == 5
+    assert native.tail_threads(busy=2) == 3
+    monkeypatch.setattr(os, "cpu_count", lambda: None)  # unknown
+    assert native.tail_threads() == 1
+
+
+@pytest.mark.parametrize(
+    "value, want",
+    [("1", 1), ("3", 3), ("12", 12), ("0", 1), ("-2", 1),
+     ("four", None), ("", None), ("2.5", None)],
+)
+def test_tail_threads_env_overrides_the_default(value, want, cores, monkeypatch):
+    """An integer wins over the default (at least 1 thread), prefetch
+    threads or not; an unreadable value gives the default."""
+    cores(6)
+    monkeypatch.setenv("ILLICO_TPU_TAIL_THREADS", value)
+    assert native.tail_threads() == (6 if want is None else want)
+    assert native.tail_threads(busy=4) == (2 if want is None else want)
+
+
+@pytest.mark.parametrize("n_threads", [1, 4])
+@pytest.mark.parametrize("route", ["host", "device"])
+def test_runner_counts_tail_threads_by_route(route, n_threads, cores, monkeypatch, request):
+    """Host input leaves the prefetch threads (``max(2, n_threads)``) their
+    cores, down to 1 tail thread; the device route has none to leave; the
+    environment wins on both.  The count reaches both native entry points:
+    the tile consumer and the sort fallback's p-value tail."""
+    if route == "device":
+        request.getfixturevalue("resident")
+    X, groups = _problem(seed=6, n=2000, t=200)
+    X[np.random.RandomState(2).randint(0, 2000, 40), 150] = 700.0  # past the table
+    X = torch.from_numpy(X)
+    seen = {"consume": [], "pvalue": []}
+    consume, pvalue = native.consume_tile_native, native.pvalue_tail_native
+
+    def spy_consume(*args, n_threads=None, **kwargs):
+        seen["consume"].append(n_threads)
+        return consume(*args, n_threads=n_threads, **kwargs)
+
+    def spy_pvalue(*args, n_threads=None, **kwargs):
+        seen["pvalue"].append(n_threads)
+        return pvalue(*args, n_threads=n_threads, **kwargs)
+
+    monkeypatch.setattr(native, "consume_tile_native", spy_consume)
+    monkeypatch.setattr(native, "pvalue_tail_native", spy_pvalue)
+    busy = max(2, n_threads) if route == "host" else 0
+    for n_cores, env, want in [(8, None, 8 - busy), (3, None, max(1, 3 - busy)),
+                               (8, "1", 1), (3, "5", 5)]:
+        cores(n_cores)
+        if env is not None:
+            monkeypatch.setenv("ILLICO_TPU_TAIL_THREADS", env)
+        seen["consume"].clear()
+        seen["pvalue"].clear()
+        df = _run(X, groups, reference="p0", batch_size=128, n_threads=n_threads)
+        assert df.attrs["input_route"] == route
+        assert df.attrs["tail_threads"] == want
+        assert df.attrs["n_fallback_cols"] >= 1
+        assert seen["consume"] == [want] * df.attrs["consume_path"]["native"]
+        assert seen["pvalue"] and set(seen["pvalue"]) == {want}
 
 
 @pytest.mark.parametrize("engine", ["hist", "sort", "csort"])
