@@ -18,7 +18,10 @@ Phases, each printing its own lines:
 2. the histogram kernel (``csrc/hist_kernel.cu``) against its plain torch
    version on the card, bit for bit: V in {128, 256, 512}, raw and log1p
    tables, T=1000, 2000 groups including a 1-cell group, adversarial values
-   (NaN, +-inf, -0.0, 0.5, -1, 511, 600, 1e30) and a uint8 tile;
+   (NaN, +-inf, -0.0, 0.5, -1, 511, 600, 1e30) and a uint8 tile; on each of
+   those six histograms the contraction kernels (``csrc/hist_contract.cu``)
+   against ``hist_contract_plain``, bit for bit: OVR with the R2 and fc row
+   splits, OVO with the nnz split (and fc_u8) and without it;
 3. the sort engine (``rank_stats_tile``) on the card against the same
    function on the CPU, OVO and OVR, raw and log1p;
 4. the public API on the card at 20k cells x 300 genes x 50 groups, OVO and
@@ -32,7 +35,10 @@ Phases, each printing its own lines:
    (``ILLICO_TPU_TAIL_THREADS=1``) and one each at the default count (the
    runner's, in ``tail_threads``), frames bit-equal,
    with the per-stage split and a scipy spot check; every tile must take
-   the native tail; then the kernel's own time at that shape (CUDA events)
+   the native tail, and each call launch K1 and the contraction kernels
+   (one in OVO, two in OVR) for its warm-up and once per tile (phase 9
+   holds its calls to the same counts); then the kernel's own time at that
+   shape (CUDA events)
    beside its memory bound, its plain version and ``torch.bincount``;
 6. the compact sort engine (``csort_stats_tile``) on the card against the
    same function on the CPU: OVO and OVR, positive and negative values,
@@ -110,14 +116,22 @@ Phases, each printing its own lines:
     call at ``ILLICO_TPU_TAIL_THREADS=1`` bit-equal beside it (tail and
     wall of both), one call under ``torch.profiler`` whose trace says when
     the first tail starts against the end of the last tile's contraction on
-    the card (``tail_overlap.py``), then one
+    the card (``tail_overlap.py``); each call's K1 and contraction kernel
+   launches counted from 0 and held to the warm-up's and one per tile; then one
     128-column and one 512-column chunk of the fallback's columns (padded
     with the columns of next largest maximum) through the sort engine alone,
     timed, the wide one's statistics against the CPU's bit for bit, and the
     top device kernels of one 128-column chunk under ``torch.profiler``; (d) K1
     alone on one full 2,048-column tile at V=256 and V=512, bit for bit
     against its plain version, timed beside its byte bound, its plain
-    version and ``torch.bincount``; (b) the same counts as an in-RAM scipy
+    version and ``torch.bincount``; (e) the contraction kernels alone on the
+   V=512 histogram of that tile (G=2,000) with the statics the runner
+   derives: OVO with the nnz split (the benchmark's path), OVO with it off,
+   OVR with the R2 row split on the control; each bit for bit against
+   ``hist_contract_plain``, its kernel launches and every device kernel of
+   one call counted, timed by CUDA events beside the plain version and the
+   bound (the histogram read once and the outputs written once, against
+   the float64 operations of its nonzero counts); (b) the same counts as an in-RAM scipy
     CSR (float32 data, int32 indices), twice: as a user's call runs it (the
     device route: the CSR uploaded and ordered by column on the card, every
     tile and fallback chunk made there, 2,048-column tiles) and with the
@@ -152,6 +166,7 @@ from unittest import mock
 import numpy as np
 
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+H100_FP64_PER_S = 34e12  # H100 SXM float64 outside the tensor cores, NVIDIA data sheet
 FULL_SHAPE = (300_000, 2048, 2000)  # cells, genes, groups of phases 5, 7 and 9
 SEED = 0
 DEV = "cuda"  # phases 6 and 7 take a CPU rehearsal at small sizes with "cpu"
@@ -294,6 +309,17 @@ def phase_kernel(stats):
                 )
             print(f"[2] V={v_buckets} log1p={is_log1p}: kernel == plain "
                   f"({int(want.sum())} counted of {x.size})", flush=True)
+            # The contraction kernels on this histogram: OVR with both row
+            # splits, OVO (the largest group as reference) with and without
+            # the nnz split.
+            del want
+            launches = {}
+            for name, kw in contract_variants(layout).items():
+                launches[name], _ = contract_check(f"[2] V={v_buckets} log1p={is_log1p} {name}",
+                                                   got, arrs["ppg"], kw)
+            print(f"[2] V={v_buckets} log1p={is_log1p}: contraction kernels == plain; "
+                  f"launches {launches}", flush=True)
+            del got
     # Narrow wire dtype: a uint8 tile is cast on the card.
     arrs = he.prepare_hist_inputs(layout, 128, False, "cuda")
     args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
@@ -306,6 +332,24 @@ def phase_kernel(stats):
         raise AssertionError(f"launch counter moved by {moved}, expected 7")
     print(f"[2] uint8 tile: kernel == plain; launch counter +{moved}", flush=True)
     stats["max_abs_err"] = worst
+    stats["contract_max_abs_err"] = 0.0  # contract_check raises on any difference
+
+
+def contract_variants(layout):
+    """``hist_contract`` keywords of three runs on one histogram: OVR with
+    both row splits on the largest group, and OVO against that group with
+    the nnz split (fc_u8 on, the fc row split on the reference) and
+    without it."""
+    from illico_tpu_torch.ops.hist_engine import real_rows_per_group
+
+    big = ref_code = int(np.argmax(real_rows_per_group(layout)))
+    n_pad = float(layout.n_pad)
+    return {
+        "ovr_row_splits": dict(n_pad=n_pad, ref_code=-1, u2_split_code=big, fc_split_code=big),
+        "ovo_nnz_split": dict(n_pad=n_pad, ref_code=ref_code, nnz_split=True, fc_u8=True,
+                              fc_split_code=ref_code),
+        "ovo": dict(n_pad=n_pad, ref_code=ref_code),
+    }
 
 
 def phase_sort():
@@ -486,6 +530,7 @@ def phase_full(stats, ctx):
     x, labels, pairs = full_counts(ctx)
     torch.cuda.synchronize()
     he.hist_pass.launches = 0  # count the main path's launches only
+    he.hist_contract.launches = 0
     runs = {}
     for threads in (1, None):  # one thread, then the default count
         for reference in ("non-targeting", None):
@@ -501,11 +546,17 @@ def phase_full(stats, ctx):
             else:  # bit-equal at any thread count
                 np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
     launches = he.hist_pass.launches
-    # Per call: one launch by the warm-up and one per tile.
+    contract_launches = he.hist_contract.launches
+    # Per call: one launch by the warm-up and one per tile; the contraction
+    # as often, one kernel in OVO and two in OVR.
     if launches != 4 * 2:
         raise AssertionError(f"main path launched the hist kernel {launches} times, expected 8")
+    if contract_launches != 2 * (2 + 4):
+        raise AssertionError(f"main path launched the contraction kernels {contract_launches} "
+                             f"times, expected 12")
     print(f"[5] hist kernel launches on the main path: {launches} (per call: the "
-          f"warm-up and one per tile); every tile took the native tail; frames "
+          f"warm-up and one per tile), contraction kernel launches {contract_launches} "
+          f"(OVO 1, OVR 2 a contraction); every tile took the native tail; frames "
           f"bit-equal at 1 and {rec['tail_threads']} (the default) tail threads; scipy "
           f"spot checks pass", flush=True)
     stats["full"] = runs
@@ -513,7 +564,8 @@ def phase_full(stats, ctx):
     # The kernel alone at the main path's shape.
     _, layout = layout_for(labels, "non-targeting")
     rec = k1_alone("[5]", torch.from_numpy(x).cuda(), layout, 128)
-    stats.update(launches=launches, **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+    stats.update(launches=launches, contract_launches=contract_launches,
+                 **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
                                                            "library_ms")},
                  max_abs_err=max(stats.get("max_abs_err", 0.0), rec["max_abs_err"]))
 
@@ -824,6 +876,7 @@ def phase_device_input(stats, ctx):
     xd = torch.from_numpy(x).cuda()
     torch.cuda.synchronize()
     he.hist_pass.launches = 0
+    he.hist_contract.launches = 0
     runs = {}
     for reference in ("non-targeting", None):
         tag = "OVO" if reference else "OVR"
@@ -837,11 +890,16 @@ def phase_device_input(stats, ctx):
         scipy_check(f"device input {tag}", df, x, labels, reference, False,
                     [(g, j) for g, j in pairs if g != reference])
     launches = he.hist_pass.launches
+    contract_launches = he.hist_contract.launches
     if launches != 2 * 2:
         raise AssertionError(f"[9] device-input path launched the hist kernel {launches} "
                              f"times, expected 4")
+    if contract_launches != 2 + 4:
+        raise AssertionError(f"[9] device-input path launched the contraction kernels "
+                             f"{contract_launches} times, expected 6")
     print(f"[9] frames equal the host-input frames bit for bit; h2d 0, fetch ~0; "
-          f"{launches} hist kernel launches; scipy spot checks pass", flush=True)
+          f"{launches} hist kernel launches, {contract_launches} contraction kernel "
+          f"launches; scipy spot checks pass", flush=True)
 
     # One profiled call: the card's busy share from the profiler's trace.
     # A throwaway profiled call on a small input first pays the profiler's
@@ -865,7 +923,8 @@ def phase_device_input(stats, ctx):
           f"call and {100 * busy_s / plain_wall:.1f}% of the unprofiled call's "
           f"{plain_wall:.3f} s; trace {os.path.getsize(trace) / 1e6:.1f} MB at {trace}",
           flush=True)
-    stats["device_input"] = dict(runs=runs, launches=launches, profiled_wall_s=wall,
+    stats["device_input"] = dict(runs=runs, launches=launches,
+                                 contract_launches=contract_launches, profiled_wall_s=wall,
                                  device_busy_s=busy_s)
 
 
@@ -1371,10 +1430,9 @@ def phase_published(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
 FALLBACK_BAND = (0.005, 0.05)
 
 
-def top_device_kernels(fn, n=3):
-    """The ``n`` device kernels that take most of one call of ``fn`` under
-    ``torch.profiler``: [name, ms, share of the call's kernel time] each,
-    from the profiler's Chrome trace (its kernel spans, summed by name)."""
+def device_kernels(fn):
+    """(name, ms) of every device kernel that one call of ``fn`` runs,
+    from a ``torch.profiler`` Chrome trace of it (after one warm-up call)."""
     import tempfile
 
     import torch
@@ -1390,12 +1448,20 @@ def top_device_kernels(fn, n=3):
         prof.export_chrome_trace(trace)
         with open(trace) as fh:
             events = json.load(fh)["traceEvents"]
-    by_name: dict = {}
-    for e in events:
-        if e.get("cat") == "kernel" and "dur" in e:
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
-    if not by_name:
+    kernels = [(e["name"], e["dur"] / 1e3) for e in events
+               if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
         raise RuntimeError("the profiler's trace holds no kernel")
+    return kernels
+
+
+def top_device_kernels(fn, n=3):
+    """The ``n`` device kernels that take most of one call of ``fn`` under
+    ``torch.profiler``: [name, ms, share of the call's kernel time] each,
+    from the profiler's Chrome trace (its kernel spans, summed by name)."""
+    by_name: dict = {}
+    for name, ms in device_kernels(fn):
+        by_name[name] = by_name.get(name, 0.0) + ms
     total = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
     return [[name[:120], ms, ms / total] for name, ms in ranked] + [["all kernels", total, 1.0]]
@@ -1419,6 +1485,7 @@ def heavy_call(tag, X, labels, is_log1p, shape, route="device"):
         torch.cuda.reset_peak_memory_stats()
     he.hist_pass.launches = 0
     he.hist_pass.v_buckets = None
+    he.hist_contract.launches = 0
     with fallback_spy() as seen:
         t0 = time.perf_counter()
         df = asymptotic_wilcoxon_arrays(X, labels, is_log1p=is_log1p,
@@ -1431,7 +1498,8 @@ def heavy_call(tag, X, labels, is_log1p, shape, route="device"):
         "wall_s": wall, "tests_per_s": n_groups * n_genes / wall,
         "engine": df.attrs["engine"], "v_buckets": he.hist_pass.v_buckets,
         "input_route": df.attrs["input_route"],
-        "launches": he.hist_pass.launches, "tiles": n_tiles,
+        "launches": he.hist_pass.launches, "contract_launches": he.hist_contract.launches,
+        "tiles": n_tiles,
         "n_fallback_cols": df.attrs["n_fallback_cols"],
         "tail_threads": df.attrs["tail_threads"],
         "stage_s": df.attrs["stage_seconds"], "consume_path": df.attrs["consume_path"],
@@ -1449,6 +1517,9 @@ def heavy_call(tag, X, labels, is_log1p, shape, route="device"):
     if DEV == "cuda" and rec["launches"] != 1 + n_tiles:
         raise AssertionError(f"{tag}: {rec['launches']} hist kernel launches, expected "
                              f"{1 + n_tiles} (the warm-up and one per tile)")
+    if DEV == "cuda" and rec["contract_launches"] != 1 + n_tiles:
+        raise AssertionError(f"{tag}: {rec['contract_launches']} contraction kernel launches, "
+                             f"expected {1 + n_tiles} (OVO: the warm-up and one per tile)")
     if cols.size != rec["n_fallback_cols"]:
         raise AssertionError(f"{tag}: {cols.size} columns reached the fallback, the frame "
                              f"says {rec['n_fallback_cols']}")
@@ -1500,6 +1571,71 @@ def k1_alone(tag, tile, layout, v_buckets):
     return rec
 
 
+def contract_check(tag, hist, ppg, kw):
+    """``hist_contract`` (the kernels on a CUDA histogram) against
+    ``hist_contract_plain`` on the same histogram: every output equal, bit
+    for bit (every statistic here is an integer below 2^53, or OVR's
+    tie_col, the same torch expression in both).  Returns the kernels'
+    launches and the outputs' bytes."""
+    import torch
+
+    from illico_tpu_torch.ops import hist_engine as he
+
+    before = he.hist_contract.launches
+    got = he.hist_contract(hist, ppg, **kw)
+    launches = he.hist_contract.launches - before
+    want = he.hist_contract_plain(hist, ppg, **kw)
+    sync()
+    if got.keys() != want.keys():
+        raise AssertionError(f"{tag}: kernel outputs {sorted(got)} != plain {sorted(want)}")
+    for key, w in want.items():
+        if not torch.equal(got[key], w):
+            diff = float((got[key].double() - w.double()).abs().max())
+            raise AssertionError(f"{tag}: contraction kernel != plain in {key}, "
+                                 f"max |diff| {diff}")
+    nbytes = sum(t.numel() * t.element_size() for t in want.values())
+    return launches, nbytes
+
+
+def contract_alone(tag, hist, ppg, kw):
+    """The contraction alone on one histogram: the kernels bit for bit
+    against the plain version, the kernels' launches and every device
+    kernel of one call (the torch steps around them included), then (on
+    CUDA) its time by CUDA events beside the plain version's and the
+    bound.  The bound counts the histogram read once and the outputs
+    written once at 3.35 TB/s, against the float64 operations this
+    histogram's nonzero counts need at 34 TFLOP/s (OVO 14 a count: fc 2,
+    k 1, U2 2, tie 9; OVR 6: R2 2, fc 2, k 1, c 1).  Returns the record."""
+    import torch
+
+    from illico_tpu_torch.ops import hist_engine as he
+
+    launches, out_bytes = contract_check(tag, hist, ppg, kw)
+    hist_bytes = hist.numel() * hist.element_size()
+    ops = int(torch.count_nonzero(hist)) * (6 if kw["ref_code"] == -1 else 14)
+    bytes_ms = (hist_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP64_PER_S * 1e3
+    rec = {"max_abs_err": 0.0, "launches": launches, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms}
+    if DEV == "cuda":
+        kernels = device_kernels(lambda: he.hist_contract(hist, ppg, **kw))
+        rec["device_kernels"] = len(kernels)
+        own = {}
+        for name, ms in kernels:
+            for stem in ("contract_kernel", "value_counts_kernel"):
+                if stem in name:
+                    own[stem] = own.get(stem, 0.0) + ms
+        rec["kernel_ms"] = sum(own.values())
+        rec["kernels_ms"] = own
+        rec["ms"] = cuda_ms(lambda: he.hist_contract(hist, ppg, **kw), reps=10)
+        rec["plain_ms"] = cuda_ms(lambda: he.hist_contract_plain(hist, ppg, **kw), reps=2)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    print(f"{tag} contraction alone, histogram {tuple(hist.shape)} "
+          f"({hist_bytes / 1e9:.2f} GB): kernels == plain; {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
     """12: the heavy-tailed count screen at the published width: (a) raw
     counts on a CUDA tensor, (d) K1 alone at V=256 and V=512, (b) the same
@@ -1510,6 +1646,7 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
     from benchmarks_torch.run import load_config
     from illico_tpu_torch import asymptotic_wilcoxon_arrays
     from illico_tpu_torch.models import wilcoxon
+    from illico_tpu_torch.ops import hist_engine as he
     from illico_tpu_torch.ops.hist_engine import MAX_V
     from illico_tpu_torch.ops.rank_engine import make_tile_fn
     from illico_tpu_torch.utils.memory import host_tile_budget
@@ -1626,8 +1763,32 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
     t_sub = time.perf_counter()
     tile = xd[:, :2048].contiguous()
     k1 = {v: k1_alone("[12d]", tile, layout, v) for v in (256, 512)}
-    del tile
     print(f"[12d] {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # -- 12e: the contraction kernels alone on that tile's V=512 histogram ----
+    # With the statics the runner derives: OVO with the nnz split (the
+    # benchmark's path), OVO with it kept off, and OVR, whose R2 row split
+    # takes the control.
+    t_sub = time.perf_counter()
+    contract = {}
+    for name, ref, hint in (("ovo_nnz_split", "non-targeting", True),
+                            ("ovo", "non-targeting", False), ("ovr_u2_split", None, True)):
+        info_e, layout_e = layout_for(labels, ref)
+        statics = he.hist_contract_statics(layout_e, info_e.ref_code, MAX_V,
+                                           nnz_split_hint=hint)
+        if statics["nnz_split"] != (name == "ovo_nnz_split") or (
+                ref is None and statics["u2_split_code"] < 0):
+            raise AssertionError(f"[12e] {name}: statics {statics} miss the variant")
+        kw = {k: v for k, v in statics.items() if k != "compute_fc"}
+        kw["n_pad"] = float(layout_e.n_pad)
+        arrs = he.prepare_hist_inputs(layout_e, MAX_V, False, tile.device)
+        hist = he.hist_pass(tile, arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"],
+                            is_log1p=False)
+        contract[name] = contract_alone(f"[12e] {name}", hist, arrs["ppg"], kw)
+        del hist
+    del tile
+    stats["contract_max_abs_err"] = 0.0
+    print(f"[12e] {time.perf_counter() - t_sub:.1f} s", flush=True)
 
     # -- 12b: the same counts as an in-RAM CSR ---------------------------------
     t_sub = t0 = time.perf_counter()
@@ -1724,13 +1885,17 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
           f"{time.perf_counter() - t_sub:.1f} s", flush=True)
     stats["heavy_tailed"] = dict(
         runs={"12a": rec_a, "12b": recs_b["device"], "12b_host": recs_b["host"], "12c": rec_c},
-        k1=k1, zeros=zeros, fallback_chunk_ms=chunk_ms, fallback_chunk_top_kernels=top,
+        k1=k1, contract=contract, zeros=zeros, fallback_chunk_ms=chunk_ms,
+        fallback_chunk_top_kernels=top,
         past_table=int(past.size), upper_table=int(upper.size),
         fetch_tile_s=fetch_tile_s, fetch_columns_s=fetch_columns_s, device_load_s=load_s,
         validate_s=validate_s,
         device_tile_ms=densify_tile_ms, device_chunk_ms=densify_chunk_ms,
         launches={"12a": rec_a["launches"], "12b": recs_b["device"]["launches"],
                   "12b_host": recs_b["host"]["launches"], "12c": rec_c["launches"]},
+        contract_launches={key: rec["contract_launches"] for key, rec in (
+            ("12a", rec_a), ("12b", recs_b["device"]), ("12b_host", recs_b["host"]),
+            ("12c", rec_c))},
     )
     stats["max_abs_err"] = max([stats.get("max_abs_err", 0.0)]
                                + [r["max_abs_err"] for r in k1.values()])
@@ -1825,7 +1990,32 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": stats.get("library_ms"),
     }
-    print(json.dumps({"kernels": [kernel]}))
+    contract = heavy.get("contract", {})
+    main_contract = contract.get("ovo_nnz_split", {})  # the benchmark's variant
+    contract_kernel = {
+        "name": "hist_contract",
+        "route": "cuda",
+        "source": "illico_tpu_torch/csrc/hist_contract.cu",
+        "replaces": "illico_tpu/ops/hist_engine.py:706",
+        # Launches of contract_kernel and value_counts_kernel, each path
+        # counted from 0: phase 5's four calls, phase 9's two, phase 12's.
+        "launches": stats.get("contract_launches"),
+        "launches_device_input": stats.get("device_input", {}).get("contract_launches"),
+        "launches_heavy_tailed": heavy.get("contract_launches"),
+        # Phase 12e, one full tile's V=512 histogram: per variant the call's
+        # time, the plain version's, the bound and its kind, the two
+        # kernels' own time and every device kernel of one call.
+        **{f"{key}_{name}": rec.get(key) for name, rec in contract.items()
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms",
+                       "device_kernels", "launches")},
+        "max_abs_err": stats.get("contract_max_abs_err"),
+        "ms": main_contract.get("ms"),
+        "plain_ms": main_contract.get("plain_ms"),
+        "bound_ms": main_contract.get("bound_ms"),
+        "bound_by": main_contract.get("bound_by", "bytes"),
+        "library_ms": None,  # no one PyTorch call computes these statistics
+    }
+    print(json.dumps({"kernels": [kernel, contract_kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,10 @@ per-(group, value, column) histograms h with per-column value tables:
 
 The histograms come from :func:`hist_pass`, which launches the hand-written
 CUDA kernel ``csrc/hist_kernel.cu`` on CUDA tensors and runs its plain torch
-version (:func:`hist_pass_plain`) on CPU tensors.  Values outside the table
+version (:func:`hist_pass_plain`) on CPU tensors.  :func:`hist_contract`
+does the same with the kernels of ``csrc/hist_contract.cu``, which read the
+float32 histogram once per pass and write the exact float64 sums, and their
+plain version :func:`hist_contract_plain`.  Values outside the table
 match nothing; :func:`hist_contract` flags their columns from the totals
 (``overflow_cols``) and the runner recomputes those with the sort engine.
 
@@ -78,6 +81,7 @@ __all__ = [
     "hist_pass",
     "hist_pass_plain",
     "hist_contract",
+    "hist_contract_plain",
     "make_hist_tile_fn",
     "make_value_table",
     "prepare_hist_inputs",
@@ -92,8 +96,9 @@ MAX_V = 512  # largest value table (_pick_v_buckets); counts >= MAX_V - 1 overfl
 # bound, so engine="auto" picks the same engine as the reference.
 HIST_EXACT_MAX_GROUP = 2**24
 
-# Group-chunk size of the float64 contraction workspace: hist_contract never
-# materializes more than ~this many bytes per float64 (chunk, V, T) temporary.
+# Group-chunk size of the plain contraction's float64 workspace:
+# hist_contract_plain never materializes more than ~this many bytes per
+# float64 (chunk, V, T) temporary.  The kernels need no workspace.
 CONTRACT_CHUNK_BYTES = 256 << 20
 
 
@@ -197,12 +202,12 @@ def hist_pass_plain(x, perm, indptr, order, table, *, is_log1p: bool):
     return out.view(n_groups, v_buckets, t_cols)
 
 
-def _check(name, t, dtype, ndim, device):
+def _check(name, t, dtype, ndim, device, fn="hist_pass"):
     if t.device != device:
-        raise ValueError(f"hist_pass: {name} is on {t.device}, x on {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, not {device}")
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(
-            f"hist_pass: {name} must be a contiguous {ndim}-d {dtype} tensor; "
+            f"{fn}: {name} must be a contiguous {ndim}-d {dtype} tensor; "
             f"got {t.dtype} with shape {tuple(t.shape)}"
         )
 
@@ -502,9 +507,120 @@ def _ksplit_outputs(out, u2_nz, tie_nz, k, a_nz, fc_sums, fc_u8: bool):
     out["overflow_cols"] = out["overflow_cols"] | (vio.sum(dim=0) > s)
 
 
-def hist_contract(
+def _group_chunks(hist):
+    """(g0, g1) group ranges whose float64 (chunk, V, T) copy stays within
+    ``CONTRACT_CHUNK_BYTES``."""
+    n_groups, v_buckets, t_cols = hist.shape
+    chunk = max(1, CONTRACT_CHUNK_BYTES // max(1, v_buckets * t_cols * 8))
+    return [(g0, min(g0 + chunk, n_groups)) for g0 in range(0, n_groups, chunk)]
+
+
+def _value_counts_plain(hist):
+    """(V, T) global value counts ``c[v, j] = sum_g h[g, v, j]``, exact.
+    Summed chunk by chunk: a reduction with dtype=float64 over the whole
+    histogram would first materialize its float64 copy (G x V x T x 8 bytes)."""
+    c = torch.zeros(hist.shape[1:], dtype=torch.float64, device=hist.device)
+    for g0, g1 in _group_chunks(hist):
+        c += hist[g0:g1].to(torch.float64).sum(dim=0)
+    return c
+
+
+def _group_sums_plain(hist, tab, a, *, nnz_split: bool, total: bool):
+    """Plain torch version of ``contract_kernel``: the (G, T) float64 sums
+    over v of ``h * v`` (fc), ``h * tab`` (U2 or R2), the OVO tie term when
+    ``a`` (the reference row) is given, ``h`` over v > 0 under ``nnz_split``
+    (k; the v=0 plane then also leaves the U2 and tie sums) and ``h`` over
+    every v when ``total``; None for the sums not asked for."""
+    f64 = torch.float64
+    n_groups, v_buckets, t_cols = hist.shape
+    vals = torch.arange(v_buckets, dtype=f64, device=hist.device)[:, None]
+
+    def new():
+        return hist.new_empty((n_groups, t_cols), dtype=f64)
+
+    fc_sums, main = new(), new()
+    tie = new() if a is not None else None
+    k = new() if nnz_split else None
+    tot = new() if total else None
+    for g0, g1 in _group_chunks(hist):
+        h = hist[g0:g1].to(f64)
+        fc_sums[g0:g1] = (h * vals).sum(dim=1)
+        if total:
+            tot[g0:g1] = h.sum(dim=1)
+        if nnz_split:  # nonzero buckets only: the v=0 plane is rebuilt on the host
+            h[:, 0, :] = 0.0
+            k[g0:g1] = h.sum(dim=1)
+        main[g0:g1] = (h * tab).sum(dim=1)
+        if tie is not None:
+            tie[g0:g1] = ((h * h * h - h) + 3.0 * a * h * (a + h)).sum(dim=1)
+    return fc_sums, main, tie, k, tot
+
+
+def _contract_library():
+    from illico_tpu_torch.utils.cuda_build import load_library
+
+    lib = load_library("hist_contract")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.illico_value_counts.restype = lib.illico_contract.restype = i32
+    lib.illico_value_counts.argtypes = [ptr, ptr, i64, i32, i32, ptr]
+    lib.illico_contract.argtypes = [ptr] * 8 + [i64, i32, i32, i32, ptr]
+    return lib
+
+
+def _launch_contract(fn, dev, *args):
+    """One launch of a ``csrc/hist_contract.cu`` entry point on the current
+    stream of ``dev``, counted in ``hist_contract.launches``."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"hist_contract kernel launch failed with cudaError_t {err}")
+    _CONTRACT_ENTRY.launches += 1
+
+
+def _value_counts_cuda(hist):
+    """:func:`_value_counts_plain` by ``value_counts_kernel``."""
+    dev = hist.device
+    _check("hist", hist, torch.float32, 3, dev, "hist_contract")
+    n_groups, v_buckets, t_cols = hist.shape
+    c = torch.zeros((v_buckets, t_cols), dtype=torch.float64, device=dev)
+    _launch_contract(_contract_library().illico_value_counts, dev, hist.data_ptr(),
+                     c.data_ptr(), t_cols, n_groups, v_buckets)
+    return c
+
+
+def _group_sums_cuda(hist, tab, a, *, nnz_split: bool, total: bool):
+    """:func:`_group_sums_plain` by ``contract_kernel``: one launch, one
+    read of the histogram."""
+    f64, dev = torch.float64, hist.device
+    _check("hist", hist, torch.float32, 3, dev, "hist_contract")
+    n_groups, v_buckets, t_cols = hist.shape
+    for name, t in (("tab", tab), ("a", a)):
+        if t is not None:
+            _check(name, t, f64, 2, dev, "hist_contract")
+            if tuple(t.shape) != (v_buckets, t_cols):
+                raise ValueError(f"hist_contract: {name} has shape {tuple(t.shape)}, "
+                                 f"expected {(v_buckets, t_cols)}")
+
+    def new():
+        return torch.empty((n_groups, t_cols), dtype=f64, device=dev)
+
+    fc_sums, main = new(), new()
+    tie = new() if a is not None else None
+    k = new() if nnz_split else None
+    tot = new() if total else None
+    _launch_contract(
+        _contract_library().illico_contract, dev,
+        *(None if t is None else t.data_ptr() for t in (hist, tab, a, fc_sums, main, tie, k, tot)),
+        t_cols, n_groups, v_buckets, int(bool(nnz_split)),
+    )
+    return fc_sums, main, tie, k, tot
+
+
+def _contract(
     hist,
     pads_per_group,
+    value_counts,
+    group_sums,
     *,
     n_pad: float,
     ref_code: int,
@@ -518,51 +634,22 @@ def hist_contract(
     fc_u8: bool = False,
     pack: bool = False,
 ):
-    """All statistics as exact float64 histogram contractions.
-
-    Same output contract as :func:`illico_tpu_torch.ops.rank_engine.rank_stats_tile`
-    plus ``overflow_cols`` (columns where a real row matched no table entry).
-    In OVO the reference group's own rows of U2 and tie_seg are zeroed (the
-    runner writes sentinels there), which is what makes narrow encodings
-    bounded by the other groups' sizes sound.  The float64 work runs in
-    group chunks of at most ``CONTRACT_CHUNK_BYTES`` per temporary, so
-    device memory holds the float32 histogram plus a bounded workspace.
-    Buckets index the integer counts for raw and log1p tables alike, so
-    ``fc_sums`` is exact in both.
-
-    ``u2_dtype`` / ``fc_dtype`` / ``tie_dtype`` narrow U2 (or R2), fc_sums
-    and tie_seg to tiers proven exact by :func:`hist_contract_statics`.
-    ``fc_split_code >= 0`` ships that group's expression-sum row as the
-    per-column uint32 ``fc_split_col`` and zeroes it inside ``fc_sums``;
-    ``u2_split_code >= 0`` (OVR) does the same for R2 with the float64
-    ``r2_split_col``: one huge group otherwise forces a wider encoding onto
-    the whole (G, T) array.  ``nnz_split`` replaces U2 and tie_seg by the
-    nnz-split arrays of :mod:`illico_tpu_torch.ops.wire` (``fc_u8`` also
-    fc_sums by ``fc_res``).
-
-    ``pack=True`` returns one uint8 tensor (:func:`pack_device_outputs`)
-    whose bytes equal the reference package's for the same histogram.
-    """
+    """The contraction around its two sums: ``value_counts(hist)`` (OVR)
+    and ``group_sums(hist, tab, a, ...)``, plain or kernel alike; the
+    (V, T) tables and every (G, T) step after the sums are torch."""
     f64 = torch.float64
-    n_groups, v_buckets, t_cols = hist.shape
-    chunk = max(1, CONTRACT_CHUNK_BYTES // max(1, v_buckets * t_cols * 8))
-    chunks = [(g0, min(g0 + chunk, n_groups)) for g0 in range(0, n_groups, chunk)]
     ovr = ref_code == -1
     fc_u8 = bool(nnz_split and fc_u8)
     out = {}
     n_real = float(n_pad) - pads_per_group.to(f64).sum()
-    # (V, T) global value counts, exact.  Summed chunk by chunk: a reduction
-    # with dtype=float64 over the whole histogram would first materialize
-    # its float64 copy (G x V x T x 8 bytes).
-    c = torch.zeros((v_buckets, t_cols), dtype=f64, device=hist.device)
-    for g0, g1 in chunks:
-        c += hist[g0:g1].to(f64).sum(dim=0)
-    out["overflow_cols"] = c.sum(dim=0) < n_real
-    vals = torch.arange(v_buckets, dtype=f64, device=hist.device)[:, None]
-
     if ovr:
+        c = value_counts(hist)
+        matched = c.sum(dim=0)
         tab = 2.0 * (torch.cumsum(c, dim=0) - c) + c + 1.0
+        # Past 2^53 (a bucket count above 208,063) this sum rounds, so it
+        # stays one torch expression: its order decides its bits.
         tie_col = (c * c * c - c).sum(dim=0)
+        a = None
     else:
         a = hist[ref_code].to(f64)
         tie_col = (a * a * a - a).sum(dim=0)
@@ -570,20 +657,10 @@ def hist_contract(
             a = a.clone()
             a[0] = 0.0
         tab = 2.0 * (torch.cumsum(a, dim=0) - a) + a
-        tie = hist.new_empty((n_groups, t_cols), dtype=f64)
-    main = hist.new_empty((n_groups, t_cols), dtype=f64)
-    fc_sums = hist.new_empty((n_groups, t_cols), dtype=f64)
-    k = hist.new_empty((n_groups, t_cols), dtype=f64) if nnz_split else None
-
-    for g0, g1 in chunks:
-        h = hist[g0:g1].to(f64)
-        fc_sums[g0:g1] = (h * vals).sum(dim=1)
-        if nnz_split:
-            h[:, 0, :] = 0.0
-            k[g0:g1] = h.sum(dim=1)
-        main[g0:g1] = (h * tab).sum(dim=1)
-        if not ovr:
-            tie[g0:g1] = ((h * h * h - h) + 3.0 * a * h * (a + h)).sum(dim=1)
+    fc_sums, main, tie, k, tot = group_sums(hist, tab, a, nnz_split=nnz_split, total=not ovr)
+    if not ovr:
+        matched = tot.sum(dim=0)
+    out["overflow_cols"] = matched < n_real
 
     if fc_split_code >= 0:
         out["fc_split_col"] = to_wire_dtype(fc_sums[fc_split_code], "uint32")
@@ -615,6 +692,56 @@ def hist_contract(
         nnz_split=nnz_split, fc_u8=fc_u8,
     ))
     return pack_device_outputs(out, narrow)[0]
+
+
+def hist_contract_plain(hist, pads_per_group, **statics):
+    """Plain torch version of :func:`hist_contract` on any device: the sums
+    as float64 torch ops over group chunks of at most
+    ``CONTRACT_CHUNK_BYTES`` per temporary, so device memory holds the
+    float32 histogram plus a bounded workspace."""
+    return _contract(hist, pads_per_group, _value_counts_plain, _group_sums_plain, **statics)
+
+
+def hist_contract(hist, pads_per_group, **statics):
+    """All statistics as exact float64 histogram contractions.
+
+    Same output contract as :func:`illico_tpu_torch.ops.rank_engine.rank_stats_tile`
+    plus ``overflow_cols`` (columns where a real row matched no table entry).
+    A CUDA histogram launches ``csrc/hist_contract.cu`` (each launch counted
+    in ``hist_contract.launches``: OVO one, OVR two); a CPU histogram takes
+    :func:`hist_contract_plain`.  Any other device raises.
+
+    Keywords (the statics of :func:`hist_contract_statics` with ``n_pad``):
+    ``n_pad`` and ``ref_code`` (-1: OVR) are required.  In OVO the
+    reference group's own rows of U2 and tie_seg are zeroed (the runner
+    writes sentinels there), which is what makes narrow encodings bounded
+    by the other groups' sizes sound.  Buckets index the integer counts for
+    raw and log1p tables alike, so ``fc_sums`` is exact in both.
+
+    ``u2_dtype`` / ``fc_dtype`` / ``tie_dtype`` narrow U2 (or R2), fc_sums
+    and tie_seg to tiers proven exact by :func:`hist_contract_statics`.
+    ``fc_split_code >= 0`` ships that group's expression-sum row as the
+    per-column uint32 ``fc_split_col`` and zeroes it inside ``fc_sums``;
+    ``u2_split_code >= 0`` (OVR) does the same for R2 with the float64
+    ``r2_split_col``: one huge group otherwise forces a wider encoding onto
+    the whole (G, T) array.  ``nnz_split`` replaces U2 and tie_seg by the
+    nnz-split arrays of :mod:`illico_tpu_torch.ops.wire` (``fc_u8`` also
+    fc_sums by ``fc_res``).
+
+    ``pack=True`` returns one uint8 tensor (:func:`pack_device_outputs`)
+    whose bytes equal the reference package's for the same histogram.
+    """
+    if hist.device.type == "cuda":
+        return _contract(hist, pads_per_group, _value_counts_cuda, _group_sums_cuda, **statics)
+    if hist.device.type == "cpu":
+        return hist_contract_plain(hist, pads_per_group, **statics)
+    raise ValueError(f"hist_contract: unsupported device {hist.device}")
+
+
+hist_contract.launches = 0
+# The counter's owner, reached without the module's name: a caller may wrap
+# ``hist_engine.hist_contract`` from outside (``tail_overlap.py`` does).
+_CONTRACT_ENTRY = hist_contract
 
 
 def make_hist_tile_fn(

@@ -22,13 +22,16 @@ contraction ends on the card against when each tail runs on the host, and
 how busy the card is while the tails run.  ``first_tail_lead_s`` is the
 end of the last tile's contraction on the card less the start of the
 first tail: positive when the host began consuming while the card still
-worked on the loop.  The last line is one JSON record.
+worked on the loop.  The last line is one JSON record; its
+``frame_sha256`` (:func:`frame_digest` of the first call's frame) compares
+two trees' frames bit for bit.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import sys
@@ -157,6 +160,19 @@ def overlap_from_trace(trace_path) -> dict:
     }
 
 
+def frame_digest(df) -> str:
+    """SHA-256 of a result frame's (pert, feature) index and its values:
+    equal digests from two trees (``--root``) mean bit-equal frames."""
+    import numpy as np
+
+    digest = hashlib.sha256()
+    for level, codes in zip(df.index.levels, df.index.codes):
+        digest.update("\n".join(map(str, level)).encode())
+        digest.update(np.asarray(codes, np.int64).tobytes())
+    digest.update(np.ascontiguousarray(df.values, dtype=np.float64).tobytes())
+    return digest.hexdigest()
+
+
 def profiled_call(X, labels, reference, profile_dir) -> tuple[object, float, dict]:
     """One public-API call under ``torch.profiler`` with the named spans;
     returns the frame, its wall and :func:`overlap_from_trace` of it."""
@@ -212,7 +228,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if first is None:
-            first = df.values
+            first, digest = df.values, frame_digest(df)
             continue
         if not np.array_equal(df.values.view(np.uint64), first.view(np.uint64)):
             raise AssertionError("a call's frame differs from the first call's")
@@ -230,7 +246,7 @@ def main() -> int:
     overlap["profiled_wall_s"] = wall
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"root": args.root, "threads_env": args.threads, "calls": calls,
-                      "overlap": overlap}))
+                      "frame_sha256": digest, "overlap": overlap}))
     return 0
 
 

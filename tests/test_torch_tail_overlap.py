@@ -92,3 +92,17 @@ def test_overlap_from_a_crafted_trace(tmp_path):
     # device spans 3-8, 120-2000, 2210-4000, 4000-4100
     assert got["device_busy_s"] == pytest.approx((5 + 1880 + 1790 + 100) * 1e-6)
     assert got["trace_s"] == pytest.approx(5800e-6)
+
+
+def test_frame_digest_tells_frames_apart():
+    rng = np.random.default_rng(1)
+    X = rng.poisson(1.0, (400, 20)).astype(np.float32)
+    labels = np.array([f"g{i}" for i in rng.integers(0, 4, 400)])
+    df = asymptotic_wilcoxon_arrays(X, labels, reference="g0", device="cpu", progress=False)
+    assert tail_overlap.frame_digest(df) == tail_overlap.frame_digest(df.copy())
+    flipped = df.copy()
+    flipped.iloc[3, 0] = np.nextafter(flipped.iloc[3, 0], np.inf)  # one bit of one p-value
+    assert tail_overlap.frame_digest(flipped) != tail_overlap.frame_digest(df)
+    renamed = df.rename(index={"g1": "g9"}, level=0)
+    assert tail_overlap.frame_digest(renamed) != tail_overlap.frame_digest(df)
+
