@@ -12,9 +12,11 @@
 Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit), the nvcc build of every
-   kernel in ``illico_tpu_torch/csrc`` and the C++ build of the native tail
-   (``csrc/tail.cpp``), with its compiler line; the tail must report an
-   OpenMP build (its default thread count depends on it);
+   kernel in ``illico_tpu_torch/csrc`` and the C++ build of the native host
+   library (``csrc/tail.cpp`` and the CSR scans ``csrc/csr_scan.cpp``), with
+   its compiler line; the library must hold both sources' entry points
+   under their build tag and report an OpenMP build (its default thread
+   count depends on it);
 2. the histogram kernel (``csrc/hist_kernel.cu``) against its plain torch
    version on the card, bit for bit: V in {128, 256, 512}, raw and log1p
    tables, T=1000, 2000 groups including a 1-cell group, adversarial values
@@ -137,7 +139,12 @@ Phases, each printing its own lines:
     tile and fallback chunk made there, 2,048-column tiles) and with the
     route's fit check refused (the host route, the default host tile
     budget): each frame equals (a)'s bit for bit, with the same fallback
-    columns; then, alone, the CSR's index check, one host tile fetch and one
+    columns, and each call checks the CSR's indices and gathers its sampled
+    windows (and, on the host route, its tiles) through the native scans
+    (``native.csr_scan_calls``, zeroed before each call), its ``setup`` and
+    unstaged seconds printed; then, alone, the CSR's index check and its
+    three sampled 24-column windows, native and plain, timed, the windows
+    bit-equal, one 2,048-column host tile native and plain, bit-equal, one
     host fallback chunk's fetch, the device upload and column sort, and one
     tile and one chunk densified on the card; (c) numpy float32 ``log1p`` of
     that CSR's data,
@@ -269,6 +276,14 @@ def phase_build():
                              "would run on one thread whatever the thread count says")
     print(f"[1] native tail built with OpenMP; default thread count "
           f"{native.tail_threads()} (host input: {native.tail_threads(busy=2)})", flush=True)
+    lib = native._load()
+    entries = ("illico_consume_tile", "illico_csr_check_sorted", "illico_csr_gather_window")
+    missing = [name for name in entries if not hasattr(lib, name)]
+    if missing or not native.BUILD_INFO["path"].endswith(f"illico_tail_{native.build_tag()}.so"):
+        raise AssertionError(f"the native library {native.BUILD_INFO['path']} lacks {missing} "
+                             f"or is not the build of {[p.name for p in native._SOURCES]}")
+    print(f"[1] native library from {[p.name for p in native._SOURCES]} (build tag "
+          f"{native.build_tag()}) holds {list(entries)}", flush=True)
 
 
 def phase_kernel(stats):
@@ -1644,7 +1659,7 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
 
     from benchmarks_torch.datagen import heavy_tailed_counts, host_csr, perturbation_labels
     from benchmarks_torch.run import load_config
-    from illico_tpu_torch import asymptotic_wilcoxon_arrays
+    from illico_tpu_torch import asymptotic_wilcoxon_arrays, native
     from illico_tpu_torch.models import wilcoxon
     from illico_tpu_torch.ops import hist_engine as he
     from illico_tpu_torch.ops.hist_engine import MAX_V
@@ -1801,15 +1816,26 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # Twice: as a user's call runs it (the copy fits the card: the device
     # route), then with the fit check refused (the host route, out of core).
+    # Each call's CSR scans (the index check, the three sampled windows and
+    # on the host route each tile) must take the native path.
     recs_b = {}
     with environ("ILLICO_TPU_HOST_BUDGET", None):  # the budget a user gets
         budget = host_tile_budget()
         for route in ("device", "host"):
             refuse = (mock.patch.object(wilcoxon, "_fits_on_device", lambda dev, nbytes: False)
                       if route == "host" else contextlib.nullcontext())
+            native.csr_scan_calls.update(dict.fromkeys(native.csr_scan_calls, 0))
             with refuse:
                 df_b, rec_b, cols_b = heavy_call(f"[12b] raw counts, in-RAM CSR, {route} route",
                                                  csr, labels, False, shape, route=route)
+            rec_b["csr_scans"] = dict(native.csr_scan_calls)
+            want = {"check_native": 1, "check_plain": 0,
+                    "gather_native": 3 + (rec_b["tiles"] if route == "host" else 0),
+                    "gather_plain": 0}
+            if rec_b["csr_scans"] != want:
+                raise AssertionError(f"[12b] {route} route: CSR scans {rec_b['csr_scans']}, "
+                                     f"expected {want}")
+            rec_b["unstaged_s"] = rec_b["wall_s"] - sum(rec_b["stage_s"].values())
             if not df_b.index.equals(df_a.index):
                 raise AssertionError(f"[12b] {route} route: index differs from 12a's")
             np.testing.assert_array_equal(df_b.values, df_a.values,
@@ -1818,19 +1844,53 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
                 raise AssertionError(f"[12b] {route} route: fallback columns differ from 12a's")
             recs_b[route] = rec_b
             del df_b
-    # The staging costs alone.  Host route: one 2,048-column tile fetched
-    # from the CSR (a column slice, then tocsc().toarray()) and one fallback
-    # chunk of 128 columns (fancy column indexing of the whole CSR).  Device
-    # route: the upload and column sort of the whole CSR, then the same tile
-    # and chunk densified on the card.  Either route: the API's check that
-    # each row's column indices are sorted, a host pass over all of them.
+    st, sh = recs_b["device"]["stage_s"], recs_b["host"]["stage_s"]
+    print(f"[12b] setup {st['setup']:.4f} s, unstaged {recs_b['device']['unstaged_s']:.4f} s "
+          f"(device route); setup {sh['setup']:.4f} s, unstaged "
+          f"{recs_b['host']['unstaged_s']:.4f} s (host route); CSR scans per call: device "
+          f"{recs_b['device']['csr_scans']}, host {recs_b['host']['csr_scans']}", flush=True)
+    # The staging costs alone.  Either route: the API's check that each
+    # row's column indices are sorted (a pass over all of them) and the
+    # runner's three sampled 24-column windows, each native (the package's
+    # binary search per row, at the default thread count) and plain (numpy's
+    # check, scipy's column slice), the windows bit-equal.  Host route: one
+    # 2,048-column tile, native and plain, bit-equal, and one fallback chunk
+    # of 128 columns (fancy column indexing of the whole CSR).  Device route:
+    # the upload and column sort of the whole CSR, then the same tile and
+    # chunk densified on the card.
     handler = data_handler_registry.get(csr)
     t0 = time.perf_counter()
     handler.validate()
     validate_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    handler.fetch_tile(0, min(2048, n_genes))
+    handler._validate_plain()
+    validate_plain_s = time.perf_counter() - t0
+    w = min(24, n_genes)
+    starts = sorted({0, max(0, n_genes // 2 - w // 2), max(0, n_genes - w)})
+    t0 = time.perf_counter()
+    windows = [handler.fetch_tile(s, s + w) for s in starts]
+    windows_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    windows_plain = [handler._fetch_tile_plain(s, s + w) for s in starts]
+    windows_plain_s = time.perf_counter() - t0
+    for s, got, want in zip(starts, windows, windows_plain):
+        if not np.array_equal(got.view(np.uint8), want.view(np.uint8)):
+            raise AssertionError(f"[12b] the native window at column {s} differs from plain")
+    del windows, windows_plain
+    t0 = time.perf_counter()
+    tile_native = handler.fetch_tile(0, min(2048, n_genes))
     fetch_tile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tile_plain = handler._fetch_tile_plain(0, min(2048, n_genes))
+    fetch_tile_plain_s = time.perf_counter() - t0
+    if not np.array_equal(tile_native.view(np.uint8), tile_plain.view(np.uint8)):
+        raise AssertionError("[12b] the native 2,048-column host tile differs from plain")
+    del tile_native, tile_plain
+    print(f"[12b] alone at {native.scan_threads()} scan threads: the index check native "
+          f"{validate_s:.4f} s, plain {validate_plain_s:.4f} s; the three sampled windows "
+          f"native {windows_s:.4f} s, plain {windows_plain_s:.4f} s, bit-equal; a "
+          f"{min(2048, n_genes)}-column host tile native {fetch_tile_s:.4f} s, plain "
+          f"{fetch_tile_plain_s:.4f} s, bit-equal", flush=True)
     t0 = time.perf_counter()
     handler.fetch_columns(cols_a[:128])
     fetch_columns_s = time.perf_counter() - t0
@@ -1847,7 +1907,6 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
         densify_tile_ms = densify_chunk_ms = None
     on_card.release()
     del on_card
-    st, sh = recs_b["device"]["stage_s"], recs_b["host"]["stage_s"]
     print(f"[12b] both routes' frames equal 12a's bit for bit, same {cols_a.size} fallback "
           f"columns; device route: {recs_b['device']['tiles']} tiles, stages fetch "
           f"{st['fetch']:.3f} s, h2d {st['h2d']:.3f} s, kernel {st['kernel']:.3f} s, tail "
@@ -1889,7 +1948,8 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
         fallback_chunk_top_kernels=top,
         past_table=int(past.size), upper_table=int(upper.size),
         fetch_tile_s=fetch_tile_s, fetch_columns_s=fetch_columns_s, device_load_s=load_s,
-        validate_s=validate_s,
+        validate_s=validate_s, validate_plain_s=validate_plain_s, windows_s=windows_s,
+        windows_plain_s=windows_plain_s, fetch_tile_plain_s=fetch_tile_plain_s,
         device_tile_ms=densify_tile_ms, device_chunk_ms=densify_chunk_ms,
         launches={"12a": rec_a["launches"], "12b": recs_b["device"]["launches"],
                   "12b_host": recs_b["host"]["launches"], "12c": rec_c["launches"]},

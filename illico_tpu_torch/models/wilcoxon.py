@@ -40,6 +40,7 @@ from typing import Literal
 import numpy as np
 import torch
 
+import illico_tpu_torch.native as native
 from illico_tpu_torch.ops.csort_engine import CompactTile
 from illico_tpu_torch.ops.rank_engine import BLOCK, build_padded_layout, make_tile_fn
 from illico_tpu_torch.parallel.mesh import Shard, on_device, warm_shards
@@ -1232,7 +1233,10 @@ class WilcoxonRunner:
                 # in flight between its fetch and its device copy.
                 run.slots = self._new_slots(n_workers + 1)
             pending = deque()  # (lb, ub, shard run, host buffer, done event)
-            with ThreadPoolExecutor(max_workers=n_workers) as workers:
+            # Each prefetch thread's CSR scans run on one thread: n_workers
+            # of them run side by side.
+            with ThreadPoolExecutor(max_workers=n_workers,
+                                    initializer=native.single_scan_thread) as workers:
                 futures = {i: workers.submit(self._fetch, *items[i][:2]) for i in range(ahead)}
                 for i, (lb, ub, run) in enumerate(items):
                     t0 = time.perf_counter()

@@ -1,17 +1,22 @@
-"""Native (C++) host kernels of the statistical tail, loaded via ctypes.
+"""Native (C++) host kernels, loaded via ctypes: the statistical tail and
+the in-RAM CSR's scans.
 
-Port of ``illico_tpu.native``.  ``csrc/tail.cpp`` is compiled at first use
-with the system C++ compiler (``CXX``, else ``g++`` or ``c++``; ``-O2``, no
-fast-math; OpenMP first, a plain build second) into ``illico_tpu_torch/_build/``, keyed
-by a hash of the source and moved into place atomically, then loaded with
-``ctypes``.  Compilation is best-effort for callers: without a compiler they
-fall back to the numpy implementations in :mod:`illico_tpu_torch.stats` and
-in the runner, and the runner reports which path each tile took
-(``consume_path``).  ``ILLICO_TPU_NO_NATIVE=1`` disables the library.
+Port of ``illico_tpu.native``, plus the CSR scans.  ``csrc/tail.cpp`` and
+``csrc/csr_scan.cpp`` are compiled at first use into one library with the
+system C++ compiler (``CXX``, else ``g++`` or ``c++``; ``-O2``, no
+fast-math; OpenMP first, a plain build second) in ``illico_tpu_torch/_build/``,
+keyed by a hash of both sources (:func:`build_tag`) and moved into place
+atomically, then loaded with ``ctypes``.  Compilation is best-effort for
+callers: without a compiler they fall back to the numpy implementations in
+:mod:`illico_tpu_torch.stats`, in the runner and in
+``utils/registry.CSRDataHandler``; the runner reports which path each tile
+took (``consume_path``) and :data:`csr_scan_calls` counts the CSR scans by
+path.  ``ILLICO_TPU_NO_NATIVE=1`` disables the library.
 
 The consume loop runs on :func:`tail_threads` OpenMP threads (bit-equal at
 any count): by default the cores this process may use, less the threads
-that run beside it; ``ILLICO_TPU_TAIL_THREADS`` sets the count.
+that run beside it; ``ILLICO_TPU_TAIL_THREADS`` sets the count.  A CSR scan
+runs on :func:`scan_threads` threads.
 """
 
 from __future__ import annotations
@@ -29,15 +34,24 @@ from illico_tpu_torch.utils.log import logger
 
 __all__ = [
     "BUILD_INFO",
+    "CSR_GATHER_DTYPES",
+    "build_tag",
     "consume_tile_native",
+    "count_csr_scan",
+    "csr_check_sorted_native",
+    "csr_gather_window_native",
+    "csr_index_dtypes_ok",
+    "csr_scan_calls",
     "native_available",
     "openmp_enabled",
     "pvalue_tail_native",
+    "scan_threads",
+    "single_scan_thread",
     "tail_threads",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
-_SRC = _PKG / "csrc" / "tail.cpp"
+_SOURCES = (_PKG / "csrc" / "tail.cpp", _PKG / "csrc" / "csr_scan.cpp")
 BUILD_DIR = _PKG / "_build"
 _LIB = None
 _TRIED = False
@@ -49,14 +63,21 @@ BUILD_INFO: dict = {"command": "", "path": ""}
 _ALTERNATIVES = {"two-sided": 0, "greater": 1, "less": 2}
 
 
+def build_tag() -> str:
+    """Hash of every source of the library: a change to either rebuilds it."""
+    h = hashlib.sha256()
+    for src in _SOURCES:
+        h.update(hashlib.sha256(src.read_bytes()).digest())
+    return h.hexdigest()[:16]
+
+
 def _build(plain: bool = False, build_dir: Path | None = None) -> Path | None:
     """Path of the built library, compiling it if it is not there; None on
     any failure (unreadable source, read-only directory, no compiler), which
     leaves the caller on the numpy path."""
     tmp = None
     try:
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:16]
+        tag = build_tag()
         # Plain (no-OpenMP) rebuilds get a distinct name: at the canonical
         # path they would turn ILLICO_TPU_TAIL_THREADS into a no-op for
         # every later process that finds the file.
@@ -82,7 +103,7 @@ def _build(plain: bool = False, build_dir: Path | None = None) -> Path | None:
         for i, (cxx, extra) in enumerate(attempts):
             cmd = [
                 cxx, "-O2", "-shared", "-fPIC", "-std=c++17",
-                str(_SRC), "-o", str(tmp), "-lm", *extra,
+                *map(str, _SOURCES), "-o", str(tmp), "-lm", *extra,
             ]
             try:
                 subprocess.run(cmd, check=True, capture_output=True, timeout=120)
@@ -210,6 +231,23 @@ def _bind(path: Path):
         ctypes.c_int64, ctypes.c_int64,   # col0, n_genes
         ctypes.POINTER(ctypes.c_double),  # col_scratch
         ctypes.c_int32,                   # n_threads
+    ]
+    cs = lib.illico_csr_check_sorted
+    cs.restype = ctypes.c_int64
+    cs.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,  # indptr, indices
+        ctypes.c_int64, ctypes.c_int64,    # n_rows, nnz (len(indices))
+        ctypes.c_int32, ctypes.c_int32,    # idx64, ptr64
+        ctypes.c_int32,                    # n_threads
+    ]
+    gw = lib.illico_csr_gather_window
+    gw.restype = ctypes.c_int32
+    gw.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # indptr, indices, data
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,     # n_rows, lb, ub
+        ctypes.c_void_p, ctypes.c_int32,                    # out, dtype code
+        ctypes.c_int32, ctypes.c_int32,                     # idx64, ptr64
+        ctypes.c_int32,                                     # n_threads
     ]
     return lib
 
@@ -506,4 +544,106 @@ def pvalue_tail_native(
         out.ctypes.data_as(dp),
         ctypes.c_int32(tail_threads() if n_threads is None else n_threads),
     )
+    return out
+
+
+# -- the in-RAM CSR's scans (csrc/csr_scan.cpp) -------------------------------
+# Value dtypes of illico_csr_gather_window, in the order of its dtype codes
+# (keep in sync with csr_scan.cpp's GatherDtype).
+CSR_GATHER_DTYPES = tuple(np.dtype(t) for t in (
+    np.int8, np.uint8, np.int16, np.uint16, np.int32, np.int64, np.float32, np.float64,
+))
+_CSR_INDEX_DTYPES = (np.dtype(np.int32), np.dtype(np.int64))
+
+# Calls of the CSR scans by path: the native entry points below count
+# themselves, ``utils/registry.CSRDataHandler``'s plain bodies count theirs
+# (:func:`count_csr_scan`).  Callers zero the counts and read them to assert
+# which path ran.
+csr_scan_calls = dict.fromkeys(("check_native", "check_plain", "gather_native", "gather_plain"), 0)
+_CALLS_LOCK = threading.Lock()
+_SCAN = threading.local()
+
+
+def count_csr_scan(key: str) -> None:
+    with _CALLS_LOCK:
+        csr_scan_calls[key] += 1
+
+
+def single_scan_thread() -> None:
+    """Run the CSR scans of the calling thread on one thread each: for
+    threads that run several scans side by side (the runner's prefetch
+    threads; a ``ThreadPoolExecutor`` initializer)."""
+    _SCAN.threads = 1
+
+
+def scan_threads() -> int:
+    """Threads of one CSR scan: 1 on a thread that called
+    :func:`single_scan_thread`, else :func:`tail_threads` (nothing else
+    runs beside the index check and the runner's sample)."""
+    return getattr(_SCAN, "threads", None) or tail_threads()
+
+
+def csr_index_dtypes_ok(indptr: np.ndarray, indices: np.ndarray) -> bool:
+    """Are both index arrays int32 or int64 in the machine's byte order?"""
+    return indptr.dtype in _CSR_INDEX_DTYPES and indices.dtype in _CSR_INDEX_DTYPES
+
+
+def _csr_lib(indptr, indices):
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the native library is not available")
+    if not csr_index_dtypes_ok(indptr, indices):
+        raise ValueError(f"index dtypes {indptr.dtype}, {indices.dtype}: int32 or int64 only")
+    return lib
+
+
+def csr_check_sorted_native(
+    indptr: np.ndarray, indices: np.ndarray, n_threads: int | None = None,
+) -> int:
+    """First row of a CSR whose column indices decrease within the row, or
+    -1.  Equal neighbours (duplicates) pass, and so does a drop where a row
+    begins; empty rows anywhere pass.  Raises where the library is not
+    loaded or an index array is neither int32 nor int64."""
+    indptr, indices = np.ascontiguousarray(indptr), np.ascontiguousarray(indices)
+    lib = _csr_lib(indptr, indices)
+    count_csr_scan("check_native")
+    return int(lib.illico_csr_check_sorted(
+        ctypes.c_void_p(indptr.ctypes.data), ctypes.c_void_p(indices.ctypes.data),
+        ctypes.c_int64(indptr.size - 1), ctypes.c_int64(indices.size),
+        ctypes.c_int32(indices.dtype.itemsize == 8), ctypes.c_int32(indptr.dtype.itemsize == 8),
+        ctypes.c_int32(scan_threads() if n_threads is None else n_threads),
+    ))
+
+
+def csr_gather_window_native(
+    indptr: np.ndarray, indices: np.ndarray, data: np.ndarray, lb: int, ub: int,
+    n_threads: int | None = None,
+) -> np.ndarray:
+    """Dense C-order ``(n_rows, ub - lb)`` window of a CSR in the data's
+    dtype, one binary search per row: equal bit for bit to
+    ``csr[:, lb:ub].tocsc().toarray(out=zeros)``, duplicates summed in
+    storage order.  Every row's indices must be sorted
+    (:func:`csr_check_sorted_native`).  Raises where the library is not
+    loaded or for dtypes outside :data:`CSR_GATHER_DTYPES` and int32/int64
+    indices."""
+    indptr, indices = np.ascontiguousarray(indptr), np.ascontiguousarray(indices)
+    data = np.ascontiguousarray(data)
+    lib = _csr_lib(indptr, indices)
+    if data.dtype not in CSR_GATHER_DTYPES:
+        raise ValueError(f"value dtype {data.dtype} is not gathered natively")
+    if not 0 <= lb <= ub:
+        raise ValueError(f"window [{lb}, {ub})")
+    n_rows = indptr.size - 1
+    out = np.zeros((n_rows, ub - lb), data.dtype)
+    count_csr_scan("gather_native")
+    rc = lib.illico_csr_gather_window(
+        ctypes.c_void_p(indptr.ctypes.data), ctypes.c_void_p(indices.ctypes.data),
+        ctypes.c_void_p(data.ctypes.data),
+        ctypes.c_int64(n_rows), ctypes.c_int64(lb), ctypes.c_int64(ub),
+        ctypes.c_void_p(out.ctypes.data), ctypes.c_int32(CSR_GATHER_DTYPES.index(data.dtype)),
+        ctypes.c_int32(indices.dtype.itemsize == 8), ctypes.c_int32(indptr.dtype.itemsize == 8),
+        ctypes.c_int32(scan_threads() if n_threads is None else n_threads),
+    )
+    if rc:
+        raise ValueError(f"the library does not gather dtype {data.dtype}")
     return out

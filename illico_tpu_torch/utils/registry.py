@@ -23,6 +23,8 @@ import numpy as np
 import torch
 from scipy import sparse as sp
 
+import illico_tpu_torch.native as native
+
 __all__ = [
     "DataHandler",
     "DeviceDenseDataHandler",
@@ -233,10 +235,36 @@ class _SparseDataHandler(DataHandler):
 
 @data_handler_registry.register(sp.csr_matrix)
 class CSRDataHandler(_SparseDataHandler):
-    """In-RAM CSR.  Column windowing relies on sorted indices per row
-    (scipy's column slice binary-searches them), hence the validation."""
+    """In-RAM CSR.  A column window is gathered by the package's own native
+    code (``csrc/csr_scan.cpp``): one binary search per row for the
+    window's bounds, then the window's own entries.  That needs sorted
+    indices within each row, hence :meth:`validate`, which runs before the
+    first tile.  Where the library is not loaded (no compiler, or
+    ``ILLICO_TPU_NO_NATIVE=1``), or for values or indices of a dtype it does
+    not take (:func:`_native_scans`), the plain bodies run: numpy's check
+    and scipy's column slice, which tests every entry."""
+
+    def __init__(self, data):
+        super().__init__(data)
+        self._checked = False  # validate() passed
+
+    def _native_scans(self) -> bool:
+        """The native scans take values of ``native.CSR_GATHER_DTYPES``
+        (not float16, uint32, uint64 or bool) with int32 or int64 indices."""
+        m = self.data
+        return (native.native_available() and m.data.dtype in native.CSR_GATHER_DTYPES
+                and native.csr_index_dtypes_ok(m.indptr, m.indices))
 
     def fetch_tile(self, lb, ub):
+        if not self._checked:
+            self.validate()
+        if not self._native_scans():
+            return self._fetch_tile_plain(lb, ub)
+        m = self.data
+        return native.csr_gather_window_native(m.indptr, m.indices, m.data, lb, ub)
+
+    def _fetch_tile_plain(self, lb, ub):
+        native.count_csr_scan("gather_plain")
         out = np.zeros((self.data.shape[0], ub - lb), dtype=self.dtype)
         self.data[:, lb:ub].tocsc().toarray(out=out)
         return out
@@ -249,6 +277,16 @@ class CSRDataHandler(_SparseDataHandler):
         return sub.data, rows, sub.indices.astype(np.int64)
 
     def validate(self):
+        if self._native_scans():
+            m = self.data
+            if native.csr_check_sorted_native(m.indptr, m.indices) >= 0:
+                raise ValueError(_UNSORTED_CSR)
+        else:
+            self._validate_plain()
+        self._checked = True
+
+    def _validate_plain(self):
+        native.count_csr_scan("check_plain")
         indices, indptr = self.data.indices, self.data.indptr
         if indices.size:
             bad = np.diff(indices) < 0
@@ -261,15 +299,18 @@ class CSRDataHandler(_SparseDataHandler):
             ]
             bad[row_starts - 1] = False
             if bad.any():
-                raise ValueError(
-                    "CSR matrix has unsorted column indices within a row; "
-                    "column windowing relies on per-row sorted order and "
-                    "would silently produce wrong tiles. Unsorted indices "
-                    "usually come from fancy indexing with an unsorted "
-                    "selector (e.g. adata[:, permutation]); call "
-                    "X.sort_indices() (or sort the selector) before running "
-                    "the test."
-                )
+                raise ValueError(_UNSORTED_CSR)
+
+
+_UNSORTED_CSR = (
+    "CSR matrix has unsorted column indices within a row; "
+    "column windowing relies on per-row sorted order and "
+    "would silently produce wrong tiles. Unsorted indices "
+    "usually come from fancy indexing with an unsorted "
+    "selector (e.g. adata[:, permutation]); call "
+    "X.sort_indices() (or sort the selector) before running "
+    "the test."
+)
 
 
 @data_handler_registry.register(sp.csc_matrix)

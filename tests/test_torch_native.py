@@ -14,7 +14,6 @@ process may use (less the prefetch threads on host input), which
 native entry points.
 """
 
-import hashlib
 import os
 import sys
 
@@ -95,15 +94,18 @@ def test_library_builds_into_given_directory(tmp_path):
     assert lib is not None, "no C++ compiler: the native tail did not build"
     for name in ("illico_pvalue_tail", "illico_consume_tile", "illico_consume_tile_ksplit"):
         assert hasattr(lib, name)
-    tag = hashlib.sha256(native._SRC.read_bytes()).hexdigest()[:16]
+    for name in ("illico_csr_check_sorted", "illico_csr_gather_window"):
+        assert hasattr(lib, name)
+    tag = native.build_tag()
     built = [p.name for p in tmp_path.iterdir()]
     assert built == [f"illico_tail_{tag}.so"]  # nothing else, no temporary left
-    assert native._SRC.name == "tail.cpp" and native._SRC.parent.name == "csrc"
+    assert [(s.name, s.parent.name) for s in native._SOURCES] == [
+        ("tail.cpp", "csrc"), ("csr_scan.cpp", "csrc")]
     assert native.BUILD_DIR.name == "_build" and native.BUILD_DIR.parent.name == "illico_tpu_torch"
 
 
 def test_truncated_cached_library_is_rebuilt(tmp_path):
-    tag = hashlib.sha256(native._SRC.read_bytes()).hexdigest()[:16]
+    tag = native.build_tag()
     broken = tmp_path / f"illico_tail_{tag}.so"
     broken.write_bytes(b"\x7fNOT-AN-ELF-OBJECT")
     lib = native._load_from(tmp_path)
