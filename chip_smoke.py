@@ -2,7 +2,7 @@
 """Smoke test of illico_tpu_torch on one CUDA card: build, check, measure.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
-    python3 chip_smoke.py --phases 1,2    # build and kernel check only
+    python3 chip_smoke.py --phases 1,2    # build and kernel checks only (K1, contraction, fused)
     python3 chip_smoke.py --phases 1,8    # build, then the wire on the card
     python3 chip_smoke.py --phases 1,5,9  # counts at full width, host and device input
     python3 chip_smoke.py --phases 1,5,9,10  # the same, then sharded and multi-process
@@ -12,7 +12,8 @@
 Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit), the nvcc build of every
-   kernel in ``illico_tpu_torch/csrc`` and the C++ build of the native host
+   kernel in ``illico_tpu_torch/csrc`` (one nvcc process per ``.cu``, all
+   started together) and the C++ build of the native host
    library (``csrc/tail.cpp`` and the CSR scans ``csrc/csr_scan.cpp``), with
    its compiler line; the library must hold both sources' entry points
    under their build tag and report an OpenMP build (its default thread
@@ -23,7 +24,11 @@ Phases, each printing its own lines:
    (NaN, +-inf, -0.0, 0.5, -1, 511, 600, 1e30) and a uint8 tile; on each of
    those six histograms the contraction kernels (``csrc/hist_contract.cu``)
    against ``hist_contract_plain``, bit for bit: OVR with the R2 and fc row
-   splits, OVO with the nnz split (and fc_u8) and without it;
+   splits, OVO with the nnz split (and fc_u8) and without it; and in the
+   same three variants the fused pass (``csrc/hist_fused.cu``:
+   ``row_counts_kernel`` and ``grouped_hist_contract_kernel``) on the same
+   tile against its plain version and against the contraction of K1's
+   histogram, bit for bit;
 3. the sort engine (``rank_stats_tile``) on the card against the same
    function on the CPU, OVO and OVR, raw and log1p;
 4. the public API on the card at 20k cells x 300 genes x 50 groups, OVO and
@@ -37,11 +42,12 @@ Phases, each printing its own lines:
    (``ILLICO_TPU_TAIL_THREADS=1``) and one each at the default count (the
    runner's, in ``tail_threads``), frames bit-equal,
    with the per-stage split and a scipy spot check; every tile must take
-   the native tail, and each call launch K1 and the contraction kernels
-   (one in OVO, two in OVR) for its warm-up and once per tile (phase 9
-   holds its calls to the same counts); then the kernel's own time at that
-   shape (CUDA events)
-   beside its memory bound, its plain version and ``torch.bincount``;
+   the native tail, and each call launch the fused pass (one
+   ``row_counts_kernel`` and one ``grouped_hist_contract_kernel``, neither K1
+   nor the histogram's contraction kernels) for its warm-up and once per
+   tile (phase 9 holds its calls to the same counts); then K1's own time at
+   that shape (CUDA events) beside its memory bound, its plain version and
+   ``torch.bincount``;
 6. the compact sort engine (``csort_stats_tile``) on the card against the
    same function on the CPU: OVO and OVR, positive and negative values,
    float32 and float64, an all-zero and a full column, real +inf values and
@@ -81,12 +87,14 @@ Phases, each printing its own lines:
     (gene mesh) and (c) ``devices=(2, 1)`` (cell mesh, host input and a CUDA
     tensor), OVO and OVR: frames equal phase 5's bit for bit, every shard
     tile on the native tail, stage seconds per device, the lead device's
-    peak memory and the histogram add timed alone; (d)
+    peak memory and the histogram add timed alone; each gene shard takes the
+    fused pass, the cell mesh K1 and the histogram's contraction kernels
+    (each path's launches counted from 0 by kernel and held); (d)
     ``simulate_multihost`` with 2 hosts x 1 device at full width, and two
     real processes joined by gloo, both on the card, at phase 4's size and
     at full width (each makes the matrix from the seed and computes its
     1,024-gene window), their frames identical and equal to the
-    single-process frame.  The kernel's launches are counted from 0 for each
+    single-process frame.  The grouped passes are counted from 0 for each
     of (b), (c), the simulated hosts and each worker process, and each count
     is held to what its calls must launch;
 11. (a) tiles and gene shards whose widths round up to the same packed
@@ -104,7 +112,7 @@ Phases, each printing its own lines:
     tiles, the last 1,856 columns), 50 sampled (group, gene) pairs against
     ``scipy.stats.mannwhitneyu``, wall, stages and peak device memory, K1's
     time on one full 2,048-column tile and K1 against its plain version on
-    the last tile.  Each call's kernel launches are counted from 0 and held
+    the last tile.  Each call's grouped passes are counted from 0 and held
     to the warm-up's and one per tile and shard;
 12. heavy-tailed raw counts at the published width (300,000 cells x 8,000
     genes x 2,000 groups): Poisson-lognormal counts made on the card from a
@@ -112,14 +120,14 @@ Phases, each printing its own lines:
     a count past 511, the largest table's last value), OVO through
     ``engine="auto"``: (a) on the CUDA tensor: the histogram engine at V=512,
     every column with a count past 511 (and only those) in the sort
-    fallback, their share within ``FALLBACK_BAND``, every tile native, K1
-    launched by the warm-up and once per tile, 50 pairs against scipy (15 on
+    fallback, their share within ``FALLBACK_BAND``, every tile native, the
+    fused pass run by the warm-up and once per tile, 50 pairs against scipy (15 on
     fallback columns, 15 on columns whose maximum is in 128-510), the same
     call at ``ILLICO_TPU_TAIL_THREADS=1`` bit-equal beside it (tail and
     wall of both), one call under ``torch.profiler`` whose trace says when
     the first tail starts against the end of the last tile's contraction on
-    the card (``tail_overlap.py``); each call's K1 and contraction kernel
-   launches counted from 0 and held to the warm-up's and one per tile; then one
+    the card (``tail_overlap.py``); each call's launches counted from 0 by
+    kernel and held to one fused pass by the warm-up and one per tile; then one
     128-column and one 512-column chunk of the fallback's columns (padded
     with the columns of next largest maximum) through the sort engine alone,
     timed, the wide one's statistics against the CPU's bit for bit, and the
@@ -133,7 +141,17 @@ Phases, each printing its own lines:
    ``hist_contract_plain``, its kernel launches and every device kernel of
    one call counted, timed by CUDA events beside the plain version and the
    bound (the histogram read once and the outputs written once, against
-   the float64 operations of its nonzero counts); (b) the same counts as an in-RAM scipy
+   the float64 operations of its nonzero counts); (f) the fused pass on
+   that tile: ``row_counts_kernel`` and ``grouped_hist_contract_kernel``
+   bit for bit against their plain versions and against K1 +
+   ``hist_contract`` in six statics variants at V=128, 256 and 512, raw and
+   numpy float32 log1p; each kernel timed at each V (the benchmark's OVO
+   nnz split, and OVR at V=512) beside its bound and plain version
+   (``torch.bincount`` beside the counting kernel), the whole pass beside
+   the histogram path's; then one OVO call on the histogram path (the
+   ``hist_fn`` hook) whose frame must equal (a)'s bit for bit and whose peak
+   device memory must exceed (a)'s by at least 90% of one V=512
+   histogram; (b) the same counts as an in-RAM scipy
     CSR (float32 data, int32 indices), twice: as a user's call runs it (the
     device route: the CSR uploaded and ordered by column on the card, every
     tile and fallback chunk made there, 2,048-column tiles) and with the
@@ -155,8 +173,11 @@ Backed h5ad inputs are not driven here: the chip machine has no ``h5py``.
 
 Any failure raises and exits non-zero; the two worker processes of phase
 10 are started here, with a time limit of their own.  The last three lines are the
-kernels' JSON record, the card's ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.
+kernels' JSON record (:func:`kernels_record`), the card's ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` there is its
+count on its own path, from 0 just before it: the fused pass's two kernels
+on phase 5's four calls (one device), K1 and the contraction kernels on
+phase 10c's four (the cell mesh, which sums its shards' histograms).
 """
 
 from __future__ import annotations
@@ -296,11 +317,12 @@ def phase_kernel(stats):
     labels = rng.integers(1, n_groups, n_cells)
     labels[rng.integers(n_cells)] = 0  # a 1-cell group
     _, layout = layout_for(labels)
+    real = he.real_rows_per_group(layout)
     counts = poisson_counts(rng, n_cells, t_cols)
     adversarial = np.array(
         [np.nan, np.inf, -np.inf, -0.0, 0.5, -1.0, 511.0, 600.0, 1e30], np.float32
     )
-    launches0 = he.hist_pass.launches
+    launches0, fused0 = he.hist_pass.launches, he.hist_pass_contract.launches
     worst = 0.0
     for is_log1p in (False, True):
         x = np.log1p(counts).astype(np.float32) if is_log1p else counts.copy()
@@ -326,26 +348,37 @@ def phase_kernel(stats):
                   f"({int(want.sum())} counted of {x.size})", flush=True)
             # The contraction kernels on this histogram: OVR with both row
             # splits, OVO (the largest group as reference) with and without
-            # the nnz split.
+            # the nnz split; then the fused pass on the same tile, against
+            # its plain version and the contraction of this histogram.
             del want
             launches = {}
             for name, kw in contract_variants(layout).items():
-                launches[name], _ = contract_check(f"[2] V={v_buckets} log1p={is_log1p} {name}",
-                                                   got, arrs["ppg"], kw)
+                tag = f"[2] V={v_buckets} log1p={is_log1p} {name}"
+                launches[name], _ = contract_check(tag, got, arrs["ppg"], kw)
+                rows = he.counting_rows(real, arrs["perm"], kw["ref_code"])
+                fused_check(tag, xd, args, arrs["ppg"], rows, is_log1p, kw, hist=got)
             print(f"[2] V={v_buckets} log1p={is_log1p}: contraction kernels == plain; "
-                  f"launches {launches}", flush=True)
+                  f"launches {launches}; fused pass == plain == K1 + contraction", flush=True)
             del got
     # Narrow wire dtype: a uint8 tile is cast on the card.
     arrs = he.prepare_hist_inputs(layout, 128, False, "cuda")
     args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
     x8 = torch.from_numpy(np.minimum(counts, 255).astype(np.uint8)).cuda()
-    if not torch.equal(he.hist_pass(x8, *args, is_log1p=False),
-                       he.hist_pass_plain(x8, *args, is_log1p=False)):
+    hist8 = he.hist_pass(x8, *args, is_log1p=False)
+    if not torch.equal(hist8, he.hist_pass_plain(x8, *args, is_log1p=False)):
         raise AssertionError("kernel != plain on a uint8 tile")
+    kw = contract_variants(layout)["ovo_nnz_split"]
+    fused_check("[2] uint8 tile ovo_nnz_split", x8, args, arrs["ppg"],
+                he.counting_rows(real, arrs["perm"], kw["ref_code"]), False, kw, hist=hist8)
+    del hist8
+    # K1's own launches: the pass counter less the fused kernel's.
     moved = he.hist_pass.launches - launches0
-    if moved != 7:
-        raise AssertionError(f"launch counter moved by {moved}, expected 7")
-    print(f"[2] uint8 tile: kernel == plain; launch counter +{moved}", flush=True)
+    fused = he.hist_pass_contract.launches - fused0
+    if moved - fused != 7 or fused != 6 * 3 + 1:
+        raise AssertionError(f"launch counters moved by {moved} (pass) and {fused} (fused), "
+                             f"expected 7 + 19 and 19")
+    print(f"[2] uint8 tile: kernel == plain, fused pass == plain == K1 + contraction; K1 "
+          f"launches +{moved - fused}, fused +{fused}", flush=True)
     stats["max_abs_err"] = worst
     stats["contract_max_abs_err"] = 0.0  # contract_check raises on any difference
 
@@ -365,6 +398,38 @@ def contract_variants(layout):
                               fc_split_code=ref_code),
         "ovo": dict(n_pad=n_pad, ref_code=ref_code),
     }
+
+
+def fused_check(tag, x, args, ppg, rows, is_log1p, kw, hist=None):
+    """The fused pass (``row_counts_kernel`` and
+    ``grouped_hist_contract_kernel``) against its plain version on the same
+    tile and, when given K1's histogram of it, against ``hist_contract`` of
+    that histogram: every output equal, bit for bit (every statistic an
+    integer below 2^53, or OVR's tie_col, the same torch expression in
+    each); each call's launches held to one of each kernel."""
+    import torch
+
+    from illico_tpu_torch.ops import hist_engine as he
+
+    counters = (he.hist_pass, he.hist_pass_contract, he.row_counts, he.hist_contract)
+    before = [c.launches for c in counters]
+    got = he.hist_pass_contract(x, *args, ppg, count_rows=rows, is_log1p=is_log1p, **kw)
+    moved = [c.launches - b for c, b in zip(counters, before)]
+    if DEV == "cuda" and moved != [1, 1, 1, 0]:
+        raise AssertionError(f"{tag}: fused call moved the launch counters (pass, fused, "
+                             f"row counts, contraction) by {moved}, expected [1, 1, 1, 0]")
+    refs = {"plain": he.hist_pass_contract_plain(x, *args, ppg, count_rows=rows,
+                                                 is_log1p=is_log1p, **kw)}
+    if hist is not None:
+        refs["K1 + hist_contract"] = he.hist_contract(hist, ppg, **kw)
+    sync()
+    for name, want in refs.items():
+        if got.keys() != want.keys():
+            raise AssertionError(f"{tag}: fused outputs {sorted(got)} != {name} {sorted(want)}")
+        for key, w in want.items():
+            if not torch.equal(got[key], w):
+                diff = float((got[key].double() - w.double()).abs().max())
+                raise AssertionError(f"{tag}: fused pass != {name} in {key}, max |diff| {diff}")
 
 
 def phase_sort():
@@ -534,18 +599,49 @@ def full_call(tag, X, labels, reference, shard_tiles=1, **kw):
     return df, rec
 
 
+LAUNCH_COUNTERS = ("hist_pass", "hist_pass_contract", "row_counts", "hist_contract")
+
+
+def zero_launches():
+    """Every kernel wrapper's launch count set to 0."""
+    from illico_tpu_torch.ops import hist_engine as he
+
+    for name in LAUNCH_COUNTERS:
+        getattr(he, name).launches = 0
+
+
+def read_launches(tag, passes, path="fused", contractions=0):
+    """The launch counts since :func:`zero_launches`, held to ``passes``
+    grouped-histogram passes on ``path``: "fused" (one device or a gene
+    shard: each pass one ``row_counts_kernel`` and one
+    ``grouped_hist_contract_kernel``, neither K1 nor the histogram's
+    contraction kernels) or "histogram" (the cell mesh and the
+    ``hist_fn`` hook: K1, and ``contractions`` launches of the contraction
+    kernels, OVO one and OVR two a contraction).  Returns the counts by
+    kernel."""
+    from illico_tpu_torch.ops import hist_engine as he
+
+    got = {name: getattr(he, name).launches for name in LAUNCH_COUNTERS}
+    fused = passes if path == "fused" else 0
+    want = {"hist_pass": passes, "hist_pass_contract": fused, "row_counts": fused,
+            "hist_contract": 0 if path == "fused" else contractions}
+    if DEV == "cuda" and got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+    return {"grouped_hist_contract_kernel": got["hist_pass_contract"],
+            "row_counts_kernel": got["row_counts"],
+            "grouped_hist_kernel": got["hist_pass"] - got["hist_pass_contract"],
+            "hist_contract_kernels": got["hist_contract"]}
+
+
 def phase_full(stats, ctx):
     import torch
-
-    from illico_tpu_torch.ops import hist_engine as he
 
     # One auto tile of 2048 columns: lift the host budget for in-flight
     # tiles (default 8 GiB at most) so it does not split the tile in two.
     os.environ["ILLICO_TPU_HOST_BUDGET"] = str(16 << 30)
     x, labels, pairs = full_counts(ctx)
     torch.cuda.synchronize()
-    he.hist_pass.launches = 0  # count the main path's launches only
-    he.hist_contract.launches = 0
+    zero_launches()  # count the main path's launches only
     runs = {}
     for threads in (1, None):  # one thread, then the default count
         for reference in ("non-targeting", None):
@@ -560,27 +656,20 @@ def phase_full(stats, ctx):
                 ctx["frames"][tag] = df
             else:  # bit-equal at any thread count
                 np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
-    launches = he.hist_pass.launches
-    contract_launches = he.hist_contract.launches
-    # Per call: one launch by the warm-up and one per tile; the contraction
-    # as often, one kernel in OVO and two in OVR.
-    if launches != 4 * 2:
-        raise AssertionError(f"main path launched the hist kernel {launches} times, expected 8")
-    if contract_launches != 2 * (2 + 4):
-        raise AssertionError(f"main path launched the contraction kernels {contract_launches} "
-                             f"times, expected 12")
-    print(f"[5] hist kernel launches on the main path: {launches} (per call: the "
-          f"warm-up and one per tile), contraction kernel launches {contract_launches} "
-          f"(OVO 1, OVR 2 a contraction); every tile took the native tail; frames "
-          f"bit-equal at 1 and {rec['tail_threads']} (the default) tail threads; scipy "
-          f"spot checks pass", flush=True)
+    # Per call: one fused pass by the warm-up and one per tile, each one
+    # launch of the counting kernel and one of the fused kernel; neither K1
+    # nor the histogram's contraction kernels.
+    launches = read_launches("[5] main path", 4 * 2)
+    print(f"[5] launches on the main path (four calls, each the warm-up and one tile): "
+          f"{launches}; every tile took the native tail; frames bit-equal at 1 and "
+          f"{rec['tail_threads']} (the default) tail threads; scipy spot checks pass",
+          flush=True)
     stats["full"] = runs
 
     # The kernel alone at the main path's shape.
     _, layout = layout_for(labels, "non-targeting")
     rec = k1_alone("[5]", torch.from_numpy(x).cuda(), layout, 128)
-    stats.update(launches=launches, contract_launches=contract_launches,
-                 **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+    stats.update(launches=launches, **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
                                                            "library_ms")},
                  max_abs_err=max(stats.get("max_abs_err", 0.0), rec["max_abs_err"]))
 
@@ -879,7 +968,6 @@ def phase_device_input(stats, ctx):
 
     from benchmarks_torch.run import device_busy_seconds
     from illico_tpu_torch import asymptotic_wilcoxon_arrays
-    from illico_tpu_torch.ops import hist_engine as he
 
     os.environ["ILLICO_TPU_HOST_BUDGET"] = str(16 << 30)
     n_cells, n_genes, n_groups = FULL_SHAPE
@@ -890,8 +978,7 @@ def phase_device_input(stats, ctx):
             ctx["frames"][tag], _ = full_call(f"[9] {tag} host input", x, labels, reference)
     xd = torch.from_numpy(x).cuda()
     torch.cuda.synchronize()
-    he.hist_pass.launches = 0
-    he.hist_contract.launches = 0
+    zero_launches()
     runs = {}
     for reference in ("non-targeting", None):
         tag = "OVO" if reference else "OVR"
@@ -904,17 +991,9 @@ def phase_device_input(stats, ctx):
         np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
         scipy_check(f"device input {tag}", df, x, labels, reference, False,
                     [(g, j) for g, j in pairs if g != reference])
-    launches = he.hist_pass.launches
-    contract_launches = he.hist_contract.launches
-    if launches != 2 * 2:
-        raise AssertionError(f"[9] device-input path launched the hist kernel {launches} "
-                             f"times, expected 4")
-    if contract_launches != 2 + 4:
-        raise AssertionError(f"[9] device-input path launched the contraction kernels "
-                             f"{contract_launches} times, expected 6")
+    launches = read_launches("[9] device-input path", 2 * 2)
     print(f"[9] frames equal the host-input frames bit for bit; h2d 0, fetch ~0; "
-          f"{launches} hist kernel launches, {contract_launches} contraction kernel "
-          f"launches; scipy spot checks pass", flush=True)
+          f"launches {launches}; scipy spot checks pass", flush=True)
 
     # One profiled call: the card's busy share from the profiler's trace.
     # A throwaway profiled call on a small input first pays the profiler's
@@ -938,8 +1017,7 @@ def phase_device_input(stats, ctx):
           f"call and {100 * busy_s / plain_wall:.1f}% of the unprofiled call's "
           f"{plain_wall:.3f} s; trace {os.path.getsize(trace) / 1e6:.1f} MB at {trace}",
           flush=True)
-    stats["device_input"] = dict(runs=runs, launches=launches,
-                                 contract_launches=contract_launches, profiled_wall_s=wall,
+    stats["device_input"] = dict(runs=runs, launches=launches, profiled_wall_s=wall,
                                  device_busy_s=busy_s)
 
 
@@ -984,12 +1062,13 @@ def multihost_worker(address, rank, device, out) -> int:
         record[f"{size}_data_s"] = time.perf_counter() - t0
         adata = array_adata(x, labels)
         for tag, reference in (("OVO", control), ("OVR", None)):
-            he.hist_pass.launches = 0
+            zero_launches()
             t0 = time.perf_counter()
             df = asymptotic_wilcoxon_multihost(
                 adata, is_log1p=False, group_keys="group", reference=reference, device=device)
             record[f"{size}_{tag}_s"] = time.perf_counter() - t0
             record[f"{size}_{tag}_launches"] = he.hist_pass.launches
+            record[f"{size}_{tag}_fused"] = he.hist_pass_contract.launches
             record[f"{size}_{tag}"] = df.values
     np.savez(out, **record)
     import torch.distributed as dist
@@ -1130,13 +1209,13 @@ def phase_sharded(stats, ctx, worker_timeout=300):
                                               **api_kw)
     n_tiles = -(-n_genes // 2048)
     runs = {}
-    launches = {}
+    launches, by_kernel = {}, {}
     for key, name, devices, shard_tiles, kinds in (
         ("gene_mesh", "10b gene mesh devices=2", 2, 2, ("host",)),
         ("cell_mesh", "10c cell mesh devices=(2, 1)", (2, 1), 1, ("host", "CUDA tensor")),
     ):
-        he.hist_pass.launches = 0  # this path's launches only
-        expected = 0
+        zero_launches()  # this path's launches only
+        expected = contractions = 0
         for kind in kinds:
             # The matrix is on the card only while it is the input, so the
             # host-input peaks do not count it.
@@ -1148,17 +1227,22 @@ def phase_sharded(stats, ctx, worker_timeout=300):
                 np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
                 runs[f"{name} {tag} {kind}"] = rec
                 expected += warm_launches[devices] + 2 * n_tiles  # 2 shards per tile
+                # The cell mesh contracts the summed histogram once by the
+                # warm-up and once per tile: OVO one kernel, OVR two.
+                contractions += (1 + n_tiles) * (1 if reference else 2)
             del X
+        # Each gene shard takes the fused pass; the cell mesh keeps K1 and
+        # the histogram's contraction kernels.
+        by_kernel[key] = read_launches(
+            f"[{name}]", expected, path="fused" if key == "gene_mesh" else "histogram",
+            contractions=contractions)
         launches[key] = he.hist_pass.launches
-        if DEV == "cuda" and launches[key] != expected:
-            raise AssertionError(f"[{name}] launched the hist kernel {launches[key]} times, "
-                                 f"expected {expected}")
     print(f"[10b/10c] gene-mesh and cell-mesh frames equal phase 5's bit for bit, host and "
-          f"CUDA-tensor input; every shard tile took the native tail; hist kernel launches: "
+          f"CUDA-tensor input; every shard tile took the native tail; grouped passes: "
           f"{launches['gene_mesh']} under the gene mesh (2 calls, each {warm_launches[2]} "
           f"warm-up launch(es) and one per tile and shard), {launches['cell_mesh']} under the "
-          f"cell mesh (4 calls, each 2 warm-up launches and one per tile and shard)",
-          flush=True)
+          f"cell mesh (4 calls, each 2 warm-up launches and one per tile and shard); by "
+          f"kernel {json.dumps(by_kernel)}", flush=True)
     # The cell mesh's histogram sum alone: one shard's (G, V, T) float32
     # histogram added into the lead's (copied first when on another card).
     a = torch.zeros((n_groups, 128, min(n_genes, 2048)), dtype=torch.float32, device=cards[0])
@@ -1172,7 +1256,7 @@ def phase_sharded(stats, ctx, worker_timeout=300):
     from illico_tpu_torch.parallel.multihost import host_gene_window
 
     adata = array_adata(x, labels)
-    he.hist_pass.launches = 0  # this path's launches only
+    zero_launches()  # this path's launches only
     for reference in ("non-targeting", None):
         tag = "OVO" if reference else "OVR"
         t0 = time.perf_counter()
@@ -1186,14 +1270,14 @@ def phase_sharded(stats, ctx, worker_timeout=300):
         print(f"[10d] simulate_multihost 2 hosts x 1 device {tag}: frame equals phase 5's "
               f"bit for bit, {wall:.3f} s", flush=True)
     launches["multihost"] = he.hist_pass.launches
-    # Per call and host: one warm-up launch and one per tile of its window.
+    # Per call and host: one warm-up pass and one per tile of its window,
+    # each host on one device: the fused pass.
     windows = [host_gene_window(n_genes, 2, h) for h in range(2)]
     per_host = [1 + -(-(ub - lb) // 2048) for lb, ub in windows]
-    if DEV == "cuda" and launches["multihost"] != 2 * sum(per_host):
-        raise AssertionError(f"[10d] the simulated hosts launched the hist kernel "
-                             f"{launches['multihost']} times, expected {2 * sum(per_host)}")
-    print(f"[10d] simulated hosts: {launches['multihost']} hist kernel launches (2 calls x 2 "
-          f"hosts, each one warm-up launch and one per tile of its window)", flush=True)
+    by_kernel["multihost"] = read_launches("[10d] simulated hosts", 2 * sum(per_host))
+    print(f"[10d] simulated hosts: {launches['multihost']} grouped passes (2 calls x 2 "
+          f"hosts, each one warm-up pass and one per tile of its window): "
+          f"{json.dumps(by_kernel['multihost'])}", flush=True)
 
     mx, mlabels = medium_problem()
     single = {
@@ -1240,11 +1324,13 @@ def phase_sharded(stats, ctx, worker_timeout=300):
                 for tag in ("OVO", "OVR"):
                     # Equal to the single-process frame, so to the other rank's.
                     np.testing.assert_array_equal(rank[f"{size}_{tag}"], want[tag])
-                    # Per call: one warm-up launch and one tile of the window.
+                    # Per call: one warm-up pass and one tile of the window,
+                    # each the fused pass (one device per process).
                     n = int(rank[f"{size}_{tag}_launches"])
-                    if DEV == "cuda" and n != 2:
-                        raise AssertionError(f"[10d] process {r}, {size} {tag}: {n} hist "
-                                             f"kernel launches, expected 2")
+                    fused = int(rank[f"{size}_{tag}_fused"])
+                    if DEV == "cuda" and (n, fused) != (2, 2):
+                        raise AssertionError(f"[10d] process {r}, {size} {tag}: {n} grouped "
+                                             f"passes, {fused} fused, expected 2 and 2")
             timing[f"rank{r}"] = {k: float(rank[k]) for k in rank.files if k.endswith("_s")}
             launches["multihost_processes"].append(
                 sum(int(rank[k]) for k in rank.files if k.endswith("_launches")))
@@ -1253,11 +1339,11 @@ def phase_sharded(stats, ctx, worker_timeout=300):
           f"{MEDIUM_SHAPE[0]} x {MEDIUM_SHAPE[1]} x {MEDIUM_SHAPE[2]} and at {n_cells} x "
           f"{n_genes} x {n_groups} (each process makes the matrix from the seed and computes "
           f"its {windows[0][1]}-gene window): every frame identical in both and equal to the "
-          f"single-process frame (the full-width ones to phase 5's); hist kernel launches per "
-          f"process {launches['multihost_processes']} (4 calls, each one warm-up launch and "
+          f"single-process frame (the full-width ones to phase 5's); fused passes per "
+          f"process {launches['multihost_processes']} (4 calls, each one warm-up pass and "
           f"one tile); {wall:.2f} s from start to exit, per process {json.dumps(timing)}",
           flush=True)
-    stats["sharded"] = dict(runs=runs, launches=launches, add_ms=add_ms,
+    stats["sharded"] = dict(runs=runs, launches=launches, by_kernel=by_kernel, add_ms=add_ms,
                             shard_kernel_ms=shard_ms, two_process_wall_s=wall, timing=timing)
     stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), worst)
 
@@ -1482,12 +1568,13 @@ def top_device_kernels(fn, n=3):
     return [[name[:120], ms, ms / total] for name, ms in ranked] + [["all kernels", total, 1.0]]
 
 
-def heavy_call(tag, X, labels, is_log1p, shape, route="device"):
+def heavy_call(tag, X, labels, is_log1p, shape, route="device", path="fused"):
     """One timed OVO call of phase 12 through ``engine="auto"``, checked to
     run the histogram engine at V=512 with every main tile on the native
-    tail, one K1 launch by the warm-up and one per tile, and its tiles made
-    where ``route`` says (``df.attrs["input_route"]``); returns the frame,
-    its record and the sorted fallback columns."""
+    tail, one grouped pass by the warm-up and one per tile (on ``path``, see
+    :func:`read_launches`), and its tiles made where ``route`` says
+    (``df.attrs["input_route"]``); returns the frame, its record and the
+    sorted fallback columns."""
     import torch
 
     from benchmarks_torch.run import fallback_spy
@@ -1498,9 +1585,8 @@ def heavy_call(tag, X, labels, is_log1p, shape, route="device"):
     sync()
     if DEV == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    he.hist_pass.launches = 0
+    zero_launches()
     he.hist_pass.v_buckets = None
-    he.hist_contract.launches = 0
     with fallback_spy() as seen:
         t0 = time.perf_counter()
         df = asymptotic_wilcoxon_arrays(X, labels, is_log1p=is_log1p,
@@ -1513,7 +1599,8 @@ def heavy_call(tag, X, labels, is_log1p, shape, route="device"):
         "wall_s": wall, "tests_per_s": n_groups * n_genes / wall,
         "engine": df.attrs["engine"], "v_buckets": he.hist_pass.v_buckets,
         "input_route": df.attrs["input_route"],
-        "launches": he.hist_pass.launches, "contract_launches": he.hist_contract.launches,
+        "launches": he.hist_pass.launches,
+        "by_kernel": read_launches(tag, 1 + n_tiles, path=path, contractions=1 + n_tiles),
         "tiles": n_tiles,
         "n_fallback_cols": df.attrs["n_fallback_cols"],
         "tail_threads": df.attrs["tail_threads"],
@@ -1529,12 +1616,6 @@ def heavy_call(tag, X, labels, is_log1p, shape, route="device"):
     require_native(tag, df)
     if rec["input_route"] != route:
         raise AssertionError(f"{tag}: input route {rec['input_route']}, expected {route}")
-    if DEV == "cuda" and rec["launches"] != 1 + n_tiles:
-        raise AssertionError(f"{tag}: {rec['launches']} hist kernel launches, expected "
-                             f"{1 + n_tiles} (the warm-up and one per tile)")
-    if DEV == "cuda" and rec["contract_launches"] != 1 + n_tiles:
-        raise AssertionError(f"{tag}: {rec['contract_launches']} contraction kernel launches, "
-                             f"expected {1 + n_tiles} (OVO: the warm-up and one per tile)")
     if cols.size != rec["n_fallback_cols"]:
         raise AssertionError(f"{tag}: {cols.size} columns reached the fallback, the frame "
                              f"says {rec['n_fallback_cols']}")
@@ -1649,6 +1730,173 @@ def contract_alone(tag, hist, ppg, kw):
     print(f"{tag} contraction alone, histogram {tuple(hist.shape)} "
           f"({hist_bytes / 1e9:.2f} GB): kernels == plain; {json.dumps(rec)}", flush=True)
     return rec
+
+
+# name -> (OVO?, statics beyond ref_code); "big" is the largest group's code,
+# "ref" the reference's (the variants of tests/test_torch_contract_cuda.py).
+FUSED_VARIANTS = {
+    "ovr": (False, {}),
+    "ovr_row_splits": (False, {"u2_split_code": "big", "fc_split_code": "big"}),
+    "ovo": (True, {}),
+    "ovo_fc_split": (True, {"fc_split_code": "big"}),
+    "ovo_nnz_split": (True, {"nnz_split": True}),
+    "ovo_nnz_split_fc_u8": (True, {"nnz_split": True, "fc_u8": True, "fc_split_code": "ref"}),
+}
+
+
+def fused_variants_check(tag, x, labels, is_log1p, v_buckets):
+    """On one tile at one table size: ``row_counts_kernel`` bit for bit
+    against its plain version and against K1's histogram (the reference's
+    row in OVO, the sum over groups in OVR), then the fused pass in every
+    variant of ``FUSED_VARIANTS`` against its plain version and K1 +
+    ``hist_contract`` (:func:`fused_check`)."""
+    import torch
+
+    from illico_tpu_torch.ops import hist_engine as he
+
+    for ovo, ref in ((False, None), (True, "non-targeting")):
+        info, layout = layout_for(labels, ref)
+        arrs = he.prepare_hist_inputs(layout, v_buckets, is_log1p, x.device)
+        args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
+        hist = he.hist_pass(x, *args, is_log1p=is_log1p)
+        rows = he.counting_rows(he.real_rows_per_group(layout), arrs["perm"],
+                                info.ref_code)
+        got = he.row_counts(x, rows, args[3], is_log1p=is_log1p)
+        want = he.row_counts_plain(x, rows, args[3], is_log1p=is_log1p)
+        from_hist = hist[info.ref_code].double() if ovo else he._value_counts_plain(hist)
+        sync()
+        if not (torch.equal(got, want) and torch.equal(got, from_hist)):
+            raise AssertionError(f"{tag} V={v_buckets} log1p={is_log1p}: row counts "
+                                 f"!= plain or != K1's histogram ({'OVO' if ovo else 'OVR'})")
+        codes = {"big": int(np.argmax(he.real_rows_per_group(layout))), "ref": info.ref_code}
+        for name, (mode, extra) in FUSED_VARIANTS.items():
+            if mode != ovo:
+                continue
+            kw = {k: codes.get(v, v) if isinstance(v, str) else v for k, v in extra.items()}
+            kw.update(n_pad=float(layout.n_pad), ref_code=info.ref_code)
+            fused_check(f"{tag} V={v_buckets} log1p={is_log1p} {name}", x, args, arrs["ppg"],
+                        rows, is_log1p, kw, hist=hist)
+        del hist
+
+
+def fused_alone(tag, tile, labels, ref, v_buckets):
+    """The fused pass alone on one tile with the runner's statics at table
+    size ``v_buckets``: each kernel's time by CUDA events (the call of its
+    wrapper, mean of 10) beside its plain version's and its bound, the
+    whole pass's time (counting, tables, kernel, (G, T) steps) beside the
+    histogram path's (K1 + ``hist_contract``) and the plain pass's, and the
+    device kernels of one pass from ``torch.profiler``.  Bounds: the bytes
+    each kernel must move at 3.35 TB/s (its rows read once, its inputs and
+    outputs once), against the float64 operations of this tile's nonzero
+    (group, value, column) counts at 34 TFLOP/s (OVO 14 a count, OVR 6, as
+    12e).  ``row_counts`` is held beside ``torch.bincount`` of the same
+    tabulated keys (int64).  Returns the record."""
+    import torch
+
+    from illico_tpu_torch.ops import hist_engine as he
+
+    info, layout = layout_for(labels, ref)
+    statics = he.hist_contract_statics(layout, info.ref_code, v_buckets)
+    kw = {k: v for k, v in statics.items() if k != "compute_fc"}
+    kw["n_pad"] = float(layout.n_pad)
+    arrs = he.prepare_hist_inputs(layout, v_buckets, False, tile.device)
+    args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
+    ppg, table = arrs["ppg"], arrs["table"]
+    rows = he.counting_rows(he.real_rows_per_group(layout), arrs["perm"], info.ref_code)
+    n_groups, t_cols = layout.n_groups, tile.shape[1]
+    n_real = int(arrs["perm"].numel())
+    hist = he.hist_pass(tile, *args, is_log1p=False)
+    nonzero = int(torch.count_nonzero(hist))
+    del hist
+    ovo = info.ref_code != -1
+    captured = {}
+
+    def capture(tab, a, **sums_kw):
+        captured.update(tab=tab, a=a, kw=sums_kw)
+        return he._grouped_sums_cuda(tile, *args, tab, a, is_log1p=False, **sums_kw)
+
+    he._contract_counts(he.row_counts(tile, rows, table, is_log1p=False), capture, ppg, **kw)
+    tab, a, sums_kw = captured["tab"], captured["a"], captured["kw"]
+    outs = he._grouped_sums_cuda(tile, *args, tab, a, is_log1p=False, **sums_kw)
+    out_bytes = sum(t.numel() * t.element_size() for t in outs if t is not None)
+    small = sum(t.numel() * t.element_size() for t in args[1:])
+    f64 = 8
+    kernel_bytes = (n_real * t_cols * 4 + n_real * 4 + small
+                    + (1 if a is None else 2) * v_buckets * t_cols * f64 + out_bytes)
+    count_bytes = rows.numel() * (t_cols * 4 + 4) + v_buckets * 4 + v_buckets * t_cols * f64
+    bytes_ms = kernel_bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = nonzero * (14 if ovo else 6) / H100_FP64_PER_S * 1e3
+    fused = {"bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "nonzero_counts": nonzero}
+    counts = {"bound_ms": count_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+              "rows": int(rows.numel())}
+    rec = {"row_counts": counts, "fused": fused, "statics": kw}
+    if DEV == "cuda":
+        counts["ms"] = cuda_ms(lambda: he.row_counts(tile, rows, table, is_log1p=False),
+                               reps=10)
+        counts["plain_ms"] = cuda_ms(
+            lambda: he.row_counts_plain(tile, rows, table, is_log1p=False), reps=3)
+        vals = tile.index_select(0, rows.long())
+        keys = (vals.long() * t_cols + torch.arange(t_cols, device=tile.device))[
+            vals < v_buckets]
+        del vals
+        counts["library_ms"] = cuda_ms(
+            lambda: torch.bincount(keys, minlength=v_buckets * t_cols), reps=3)
+        del keys
+        fused["ms"] = cuda_ms(lambda: he._grouped_sums_cuda(
+            tile, *args, tab, a, is_log1p=False, **sums_kw), reps=10)
+        fused["plain_ms"] = cuda_ms(lambda: he._group_sums_plain(
+            he.hist_pass_plain(tile, *args, is_log1p=False), tab, a, **sums_kw), reps=2)
+        for r in (counts, fused):
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+        call = {"ms": cuda_ms(lambda: he.hist_pass_contract(
+            tile, *args, ppg, count_rows=rows, is_log1p=False, **kw), reps=10)}
+        call["histogram_path_ms"] = cuda_ms(lambda: he.hist_contract(
+            he.hist_pass(tile, *args, is_log1p=False), ppg, **kw), reps=5)
+        call["plain_ms"] = cuda_ms(lambda: he.hist_pass_contract_plain(
+            tile, *args, ppg, count_rows=rows, is_log1p=False, **kw), reps=2)
+        kernels = device_kernels(lambda: he.hist_pass_contract(
+            tile, *args, ppg, count_rows=rows, is_log1p=False, **kw))
+        call["device_kernels"] = len(kernels)
+        by_name: dict = {}
+        for name, ms in kernels:
+            by_name[name] = by_name.get(name, 0.0) + ms
+        call["top_kernels"] = [[name[:100], ms] for name, ms in
+                               sorted(by_name.items(), key=lambda kv: -kv[1])[:4]]
+        for stem, r in (("grouped_hist_contract_kernel", fused), ("row_counts_kernel", counts)):
+            hits = [ms for name, ms in kernels if stem in name]
+            r["kernel_ms"] = sum(hits) if hits else None  # None: the trace lost it
+        rec["call"] = call
+    print(f"{tag} fused pass alone, V={v_buckets}, {tile.shape[0]} x {t_cols} tile, "
+          f"{n_groups} groups ({rows.numel()} counting rows): {json.dumps(rec)}", flush=True)
+    return rec
+
+
+@contextlib.contextmanager
+def histogram_path():
+    """Inside the block the runner's single-device tile function takes the
+    histogram path through ``make_hist_tile_fn``'s ``hist_fn`` hook: K1's
+    (G, V, T) histogram, then ``hist_contract`` of it."""
+    from illico_tpu_torch.ops import hist_engine as he
+
+    make = he.make_hist_tile_fn
+
+    def with_histogram(layout, *, device, is_log1p, v_buckets=he.DEFAULT_V, **kw):
+        arrs = he.prepare_hist_inputs(layout, v_buckets, is_log1p, device)
+        args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
+
+        def hist_fn(x, mark):
+            hist = he.hist_pass(x, *args, is_log1p=is_log1p)
+            if mark is not None:
+                mark("kernel")
+            return hist
+
+        return make(layout, device=device, is_log1p=is_log1p, v_buckets=v_buckets,
+                    hist_fn=hist_fn, **kw)
+
+    with mock.patch.object(he, "make_hist_tile_fn", with_histogram):
+        yield
 
 
 def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
@@ -1801,9 +2049,47 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
                             is_log1p=False)
         contract[name] = contract_alone(f"[12e] {name}", hist, arrs["ppg"], kw)
         del hist
-    del tile
     stats["contract_max_abs_err"] = 0.0
     print(f"[12e] {time.perf_counter() - t_sub:.1f} s", flush=True)
+
+    # -- 12f: the fused pass on that tile --------------------------------------
+    # Both kernels bit for bit against their plain versions and K1 +
+    # hist_contract in every variant at V=128, 256 and 512, raw and numpy
+    # float32 log1p; then timed at each V (the benchmark's OVO nnz split,
+    # and OVR at V=512); then one OVO call on the histogram path (the
+    # hist_fn hook) against 12a's fused call: frames equal, and the peak
+    # device memory of each.
+    t_sub = time.perf_counter()
+    log_tile = torch.from_numpy(np.log1p(tile.cpu().numpy())).to(tile.device)
+    for is_log1p, x in ((False, tile), (True, log_tile)):
+        for v in (128, 256, 512):
+            fused_variants_check("[12f]", x, labels, is_log1p, v)
+    del log_tile
+    print(f"[12f] row_counts_kernel and grouped_hist_contract_kernel == plain == K1 + "
+          f"hist_contract in {len(FUSED_VARIANTS)} variants at V=128, 256, 512, raw and "
+          f"log1p; {time.perf_counter() - t_sub:.1f} s", flush=True)
+    timed = {f"ovo_nnz_split_v{v}": fused_alone("[12f] ovo_nnz_split", tile, labels,
+                                                "non-targeting", v) for v in (128, 256, 512)}
+    timed["ovr_v512"] = fused_alone("[12f] ovr", tile, labels, None, MAX_V)
+    del tile
+    with histogram_path(), environ("ILLICO_TPU_TAIL_THREADS", None):
+        df_h, rec_h, cols_h = heavy_call("[12f] raw counts, CUDA tensor, histogram path", xd,
+                                         labels, False, shape, path="histogram")
+    if not (df_h.index.equals(df_a.index) and np.array_equal(cols_h, cols_a)
+            and np.array_equal(df_h.values.view(np.uint64), df_a.values.view(np.uint64))):
+        raise AssertionError("[12f] the histogram path's frame differs from 12a's fused call")
+    del df_h
+    hist_gb = n_groups * MAX_V * min(2048, n_genes) * 4 / 1e9
+    peaks = {"fused": rec_a["peak_device_gb"], "histogram": rec_h["peak_device_gb"]}
+    fused = dict(timed=timed, peak_device_gb=peaks, histogram_path_launches=rec_h["by_kernel"],
+                 histogram_path_wall_s=rec_h["wall_s"], fused_wall_s=rec_a["wall_s"])
+    if DEV == "cuda" and peaks["histogram"] - peaks["fused"] < 0.9 * hist_gb:
+        raise AssertionError(f"[12f] peak device memory {peaks}: the fused call should hold "
+                             f"no (G, V, T) histogram ({hist_gb:.2f} GB)")
+    print(f"[12f] one OVO call each: frames bit-equal; peak device memory {json.dumps(peaks)} "
+          f"GB (one V=512 histogram: {hist_gb:.2f} GB); wall fused {rec_a['wall_s']:.4f} s, "
+          f"histogram path {rec_h['wall_s']:.4f} s; {time.perf_counter() - t_sub:.1f} s",
+          flush=True)
 
     # -- 12b: the same counts as an in-RAM CSR ---------------------------------
     t_sub = t0 = time.perf_counter()
@@ -1953,12 +2239,123 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
         device_tile_ms=densify_tile_ms, device_chunk_ms=densify_chunk_ms,
         launches={"12a": rec_a["launches"], "12b": recs_b["device"]["launches"],
                   "12b_host": recs_b["host"]["launches"], "12c": rec_c["launches"]},
-        contract_launches={key: rec["contract_launches"] for key, rec in (
+        by_kernel={key: rec["by_kernel"] for key, rec in (
             ("12a", rec_a), ("12b", recs_b["device"]), ("12b_host", recs_b["host"]),
             ("12c", rec_c))},
+        fused=fused,
     )
     stats["max_abs_err"] = max([stats.get("max_abs_err", 0.0)]
                                + [r["max_abs_err"] for r in k1.values()])
+
+
+def kernels_record(stats) -> dict:
+    """The kernels' JSON record from the phases' statistics: one entry per
+    kernel with the keys the record's readers need, None where the phase
+    that measures a number did not run."""
+    sharded = stats.get("sharded", {}).get("launches", {})
+    by_path = stats.get("sharded", {}).get("by_kernel", {})
+    cell_mesh = by_path.get("cell_mesh", {})
+    main_path = stats.get("launches") or {}
+    heavy = stats.get("heavy_tailed", {})
+    fused = heavy.get("fused", {})
+    # Each kernel's "launches" is its count on its own path, from 0 just
+    # before it: phase 5's four calls (one device: the counting and fused
+    # kernels) and phase 10c's four (the cell mesh: K1 and the histogram's
+    # contraction kernels).  The "passes_*" keys count grouped-histogram
+    # passes (``hist_pass.launches``: K1 or the fused kernel) per path.
+    kernel = {
+        "name": "grouped_hist",
+        "route": "cuda",
+        "source": "illico_tpu_torch/csrc/hist_kernel.cu",
+        "replaces": "illico_tpu/ops/hist_engine.py:80",
+        "launches": cell_mesh.get("grouped_hist_kernel"),
+        "passes_main_path": main_path.get("grouped_hist_contract_kernel"),
+        "passes_device_input": stats.get("device_input", {}).get("launches", {}).get(
+            "grouped_hist_contract_kernel"),
+        # Phase 10, each path counted from 0 on its own: the gene-mesh and
+        # cell-mesh API calls and the simulated hosts (passes_sharded is
+        # their sum), then each of the two worker processes' own count.
+        "passes_sharded": sum(sharded[k] for k in ("gene_mesh", "cell_mesh", "multihost"))
+        if sharded else None,
+        "passes_gene_mesh": sharded.get("gene_mesh"),
+        "passes_cell_mesh": sharded.get("cell_mesh"),
+        "passes_multihost": sharded.get("multihost"),
+        "passes_multihost_processes": sharded.get("multihost_processes"),
+        # Phase 11, each call counted from 0: 11a per call, 11c's call at
+        # the published width.
+        "passes_repaired_widths": stats.get("widths", {}).get("launches"),
+        "passes_published_width": stats.get("published", {}).get("launches"),
+        "ms_published_width": stats.get("published", {}).get("kernel_ms"),
+        # Phase 12, each call counted from 0: the heavy-tailed screen on a
+        # CUDA tensor (12a), as a CSR (12b) and its log1p as a CSR (12c); then
+        # K1 alone on one full tile of it at V=256 and V=512 (12d).
+        "passes_heavy_tailed": heavy.get("launches"),
+        **{f"{key}_v{v}": heavy.get("k1", {}).get(v, {}).get(key)
+           for v in (256, 512) for key in ("ms", "bound_ms", "plain_ms", "library_ms")},
+        "max_abs_err": stats.get("max_abs_err"),
+        "ms": stats.get("ms"),
+        "plain_ms": stats.get("plain_ms"),
+        "bound_ms": stats.get("bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": stats.get("library_ms"),
+    }
+    contract = heavy.get("contract", {})
+    main_contract = contract.get("ovo_nnz_split", {})  # the benchmark's variant
+    contract_kernel = {
+        "name": "hist_contract",
+        "route": "cuda",
+        "source": "illico_tpu_torch/csrc/hist_contract.cu",
+        "replaces": "illico_tpu/ops/hist_engine.py:706",
+        # Launches of contract_kernel and value_counts_kernel on the cell
+        # mesh (phase 10c), counted from 0.
+        "launches": cell_mesh.get("hist_contract_kernels"),
+        # Phase 12e, one full tile's V=512 histogram: per variant the call's
+        # time, the plain version's, the bound and its kind, the two
+        # kernels' own time and every device kernel of one call.
+        **{f"{key}_{name}": rec.get(key) for name, rec in contract.items()
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms",
+                       "device_kernels", "launches")},
+        "max_abs_err": stats.get("contract_max_abs_err"),
+        "ms": main_contract.get("ms"),
+        "plain_ms": main_contract.get("plain_ms"),
+        "bound_ms": main_contract.get("bound_ms"),
+        "bound_by": main_contract.get("bound_by", "bytes"),
+        "library_ms": None,  # no one PyTorch call computes these statistics
+    }
+    # Phase 12f, one full tile: per table size the benchmark's OVO nnz split
+    # (and OVR at V=512); the top-level numbers are V=512's OVO nnz split.
+    timed = fused.get("timed", {})
+    main_fused = timed.get("ovo_nnz_split_v512", {})
+    fused_kernels = []
+    for name, part, library in (("grouped_hist_contract", "fused", None),
+                                ("row_counts", "row_counts", "torch.bincount")):
+        fused_kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "illico_tpu_torch/csrc/hist_fused.cu",
+            "replaces": "illico_tpu/ops/hist_engine.py:80",
+            "launches": main_path.get(f"{name}_kernel"),
+            "launches_device_input": stats.get("device_input", {}).get("launches", {}).get(
+                f"{name}_kernel"),
+            "launches_heavy_tailed": {key: rec.get(f"{name}_kernel")
+                                      for key, rec in heavy.get("by_kernel", {}).items()},
+            **{f"{key}_{case}": rec[part].get(key) for case, rec in timed.items()
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms",
+                           "library_ms")},
+            "max_abs_err": 0.0 if main_fused else None,  # fused_check raises on any difference
+            "ms": main_fused.get(part, {}).get("ms"),
+            "plain_ms": main_fused.get(part, {}).get("plain_ms"),
+            "bound_ms": main_fused.get(part, {}).get("bound_ms"),
+            "bound_by": main_fused.get(part, {}).get("bound_by", "bytes"),
+            # torch.bincount of the tabulated keys beside row_counts; no one
+            # PyTorch call computes the fused statistics.
+            "library_ms": main_fused.get(part, {}).get("library_ms") if library else None,
+        })
+    fused_kernels[0].update({
+        f"call_{key}_{case}": rec.get("call", {}).get(key) for case, rec in timed.items()
+        for key in ("ms", "histogram_path_ms", "plain_ms", "device_kernels")})
+    fused_kernels[0]["peak_device_gb"] = fused.get("peak_device_gb")
+    return {"kernels": [kernel, contract_kernel, *fused_kernels]}
 
 
 def main() -> int:
@@ -2014,68 +2411,7 @@ def main() -> int:
     if 12 in phases:
         phase_heavy_tailed(stats)
     print(f"phases {sorted(phases)} passed in {time.perf_counter() - t0:.1f} s", flush=True)
-    sharded = stats.get("sharded", {}).get("launches", {})
-    heavy = stats.get("heavy_tailed", {})
-    kernel = {
-        "name": "grouped_hist",
-        "route": "cuda",
-        "source": "illico_tpu_torch/csrc/hist_kernel.cu",
-        "replaces": "illico_tpu/ops/hist_engine.py:80",
-        "launches": stats.get("launches"),
-        "launches_device_input": stats.get("device_input", {}).get("launches"),
-        # Phase 10, each path counted from 0 on its own: the gene-mesh and
-        # cell-mesh API calls and the simulated hosts (launches_sharded is
-        # their sum), then each of the two worker processes' own count.
-        "launches_sharded": sum(sharded[k] for k in ("gene_mesh", "cell_mesh", "multihost"))
-        if sharded else None,
-        "launches_gene_mesh": sharded.get("gene_mesh"),
-        "launches_cell_mesh": sharded.get("cell_mesh"),
-        "launches_multihost": sharded.get("multihost"),
-        "launches_multihost_processes": sharded.get("multihost_processes"),
-        # Phase 11, each call counted from 0: 11a per call, 11c's call at
-        # the published width.
-        "launches_repaired_widths": stats.get("widths", {}).get("launches"),
-        "launches_published_width": stats.get("published", {}).get("launches"),
-        "ms_published_width": stats.get("published", {}).get("kernel_ms"),
-        # Phase 12, each call counted from 0: the heavy-tailed screen on a
-        # CUDA tensor (12a), as a CSR (12b) and its log1p as a CSR (12c); then
-        # K1 alone on one full tile of it at V=256 and V=512 (12d).
-        "launches_heavy_tailed": heavy.get("launches"),
-        **{f"{key}_v{v}": heavy.get("k1", {}).get(v, {}).get(key)
-           for v in (256, 512) for key in ("ms", "bound_ms", "plain_ms", "library_ms")},
-        "max_abs_err": stats.get("max_abs_err"),
-        "ms": stats.get("ms"),
-        "plain_ms": stats.get("plain_ms"),
-        "bound_ms": stats.get("bound_ms"),
-        "bound_by": "bytes",
-        "library_ms": stats.get("library_ms"),
-    }
-    contract = heavy.get("contract", {})
-    main_contract = contract.get("ovo_nnz_split", {})  # the benchmark's variant
-    contract_kernel = {
-        "name": "hist_contract",
-        "route": "cuda",
-        "source": "illico_tpu_torch/csrc/hist_contract.cu",
-        "replaces": "illico_tpu/ops/hist_engine.py:706",
-        # Launches of contract_kernel and value_counts_kernel, each path
-        # counted from 0: phase 5's four calls, phase 9's two, phase 12's.
-        "launches": stats.get("contract_launches"),
-        "launches_device_input": stats.get("device_input", {}).get("contract_launches"),
-        "launches_heavy_tailed": heavy.get("contract_launches"),
-        # Phase 12e, one full tile's V=512 histogram: per variant the call's
-        # time, the plain version's, the bound and its kind, the two
-        # kernels' own time and every device kernel of one call.
-        **{f"{key}_{name}": rec.get(key) for name, rec in contract.items()
-           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms",
-                       "device_kernels", "launches")},
-        "max_abs_err": stats.get("contract_max_abs_err"),
-        "ms": main_contract.get("ms"),
-        "plain_ms": main_contract.get("plain_ms"),
-        "bound_ms": main_contract.get("bound_ms"),
-        "bound_by": main_contract.get("bound_by", "bytes"),
-        "library_ms": None,  # no one PyTorch call computes these statistics
-    }
-    print(json.dumps({"kernels": [kernel, contract_kernel]}))
+    print(json.dumps(kernels_record(stats)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hist_common.cuh"
+
 namespace {
+
+using illico_hist::tie_term;  // shared with csrc/hist_fused.cu
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 8;
@@ -62,13 +66,6 @@ __global__ void __launch_bounds__(kThreads) value_counts_kernel(
   for (; g < g1; ++g, p += vt) acc = __dadd_rn(acc, static_cast<double>(__ldg(p)));
   // Integer partial sums: the atomics' order cannot change the total.
   if (acc != 0.0) atomicAdd(c + i, acc);
-}
-
-__device__ __forceinline__ double tie_term(double h, double a) {
-  // (h*h*h - h) + 3.0*a*h*(a + h), as the plain version evaluates it.
-  const double cube = __dsub_rn(__dmul_rn(__dmul_rn(h, h), h), h);
-  const double cross = __dmul_rn(__dmul_rn(__dmul_rn(3.0, a), h), __dadd_rn(a, h));
-  return __dadd_rn(cube, cross);
 }
 
 template <bool kTie, bool kNnzSplit>

@@ -16,8 +16,9 @@
 // accepted only if table[k] == x, the reference's float compare (so -0.0
 // lands in bucket 0, like the Pallas kernel's `==`).
 //
-// Layout: one CTA per (group, 32-column block), both flattened onto
-// gridDim.x (gridDim.y stops at 65,535); the host orders groups largest
+// The bucket rule and the row loop live in hist_common.cuh, shared with
+// csrc/hist_fused.cu.  Layout: one CTA per (group, 32-column block), both
+// flattened onto gridDim.x (gridDim.y stops at 65,535); the host orders groups largest
 // first so the long CTAs of a big control group start early instead of
 // forming the tail.  Lane = column, so each row read is one coalesced
 // 128-byte segment; warps stride over the group's rows.  Counts live in a
@@ -37,29 +38,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hist_common.cuh"
+
 namespace {
 
-constexpr int kCols = 32;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;
-
-template <bool kLog1p>
-__device__ __forceinline__ void count_value(
-    float v, const float* __restrict__ table, int v_buckets,
-    int32_t* hist_col, int32_t& zeros) {
-  float k = rintf(kLog1p ? expm1f(v) : v);
-  if (k >= 0.0f && k < static_cast<float>(v_buckets)) {
-    int ki = static_cast<int>(k);
-    if (__ldg(table + ki) == v) {
-      if (ki == 0) {
-        ++zeros;
-      } else {
-        atomicAdd(hist_col + ki * kCols, 1);
-      }
-    }
-  }
-}
+using illico_hist::kCols;
+using illico_hist::kThreads;
+using illico_hist::kWarps;
 
 template <bool kLog1p>
 __global__ void __launch_bounds__(kThreads) grouped_hist_kernel(
@@ -81,26 +66,8 @@ __global__ void __launch_bounds__(kThreads) grouped_hist_kernel(
   int32_t zeros = 0;
   int32_t* hist_col = hist + lane;
   if (col_ok) {
-    const int64_t end = indptr[g + 1];
-    int64_t r = indptr[g] + warp;
-    // kUnroll independent row loads in flight per warp.
-    for (; r + (kUnroll - 1) * kWarps < end; r += kUnroll * kWarps) {
-      float v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t src = __ldg(perm + r + u * kWarps);
-        v[u] = __ldg(x + src * t_cols + col);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        count_value<kLog1p>(v[u], table, v_buckets, hist_col, zeros);
-      }
-    }
-    for (; r < end; r += kWarps) {
-      const int64_t src = __ldg(perm + r);
-      count_value<kLog1p>(__ldg(x + src * t_cols + col), table, v_buckets,
-                          hist_col, zeros);
-    }
+    zeros = illico_hist::count_rows<kLog1p>(x, perm, indptr[g] + warp, indptr[g + 1],
+                                            t_cols, col, table, v_buckets, hist_col);
   }
   if (zeros) atomicAdd(hist_col, zeros);
   __syncthreads();

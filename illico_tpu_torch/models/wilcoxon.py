@@ -789,9 +789,10 @@ class WilcoxonRunner:
     # -- warm-up ------------------------------------------------------------------
     def precompile(self) -> float:
         """Pay the one-time costs before the tile loop: build and load the
-        native tail (C++ compiler) and, on CUDA, the histogram and
-        contraction kernels (nvcc; the hist tile function launches both),
-        then run the tile function once per distinct device on a
+        native tail (C++ compiler) and, on CUDA, the kernels the hist tile
+        function launches (nvcc: the fused pass on one device, K1 and the
+        contraction kernels under the cell mesh), by running the tile
+        function once per distinct device on a
         zero tile of a shard's shape, so the loop meets a loaded library,
         initialized device modules and a warm allocator.  (The sort engine's
         zero tile is 8 columns wide.)  Returns the seconds it took."""

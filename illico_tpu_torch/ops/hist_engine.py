@@ -14,14 +14,20 @@ per-(group, value, column) histograms h with per-column value tables:
         tie_ref[j]  = sum_v a^3 - a
   FC:   sums[g,j]   = sum_v h * v
 
-The histograms come from :func:`hist_pass`, which launches the hand-written
-CUDA kernel ``csrc/hist_kernel.cu`` on CUDA tensors and runs its plain torch
-version (:func:`hist_pass_plain`) on CPU tensors.  :func:`hist_contract`
-does the same with the kernels of ``csrc/hist_contract.cu``, which read the
-float32 histogram once per pass and write the exact float64 sums, and their
-plain version :func:`hist_contract_plain`.  Values outside the table
-match nothing; :func:`hist_contract` flags their columns from the totals
-(``overflow_cols``) and the runner recomputes those with the sort engine.
+On one device (or each shard of the gene mesh) a tile takes
+:func:`hist_pass_contract`: on CUDA tensors the hand-written kernels of
+``csrc/hist_fused.cu`` first count the values of the rows the (V, T) tables
+need (:func:`row_counts`: the reference's rows, or every row in OVR), then
+count each (group, 32-column) block in shared memory and contract it there
+over v, so the (G, V, T) histogram is never written.  The cell mesh sums
+its shards' histograms, so it keeps them: :func:`hist_pass` launches
+``csrc/hist_kernel.cu`` (K1) and :func:`hist_contract` the kernels of
+``csrc/hist_contract.cu``, which read the float32 histogram once per pass
+and write the exact float64 sums.  CPU tensors take each kernel's plain
+torch version (:func:`row_counts_plain`, :func:`hist_pass_plain`,
+:func:`hist_contract_plain`).  Values outside the table match nothing; the
+contraction flags their columns from the totals (``overflow_cols``) and the
+runner recomputes those with the sort engine.
 
 The statistics of a tile leave the device as one ``uint8`` buffer on the
 packed wire of :mod:`illico_tpu_torch.ops.wire` (its names are re-exported
@@ -82,6 +88,11 @@ __all__ = [
     "hist_pass_plain",
     "hist_contract",
     "hist_contract_plain",
+    "hist_pass_contract",
+    "hist_pass_contract_plain",
+    "row_counts",
+    "row_counts_plain",
+    "counting_rows",
     "make_hist_tile_fn",
     "make_value_table",
     "prepare_hist_inputs",
@@ -180,18 +191,24 @@ def _as_float32(x):
     return x if x.dtype == torch.float32 else x.to(torch.float32)
 
 
+def _buckets(x, rows, table, *, is_log1p: bool):
+    """K1's bucket rule on the rows ``rows`` of ``x``: (bucket index k as
+    int64, mask of the values that land in bucket k), both (len(rows), T)."""
+    vals = _as_float32(x).index_select(0, rows.long())
+    k = torch.round(torch.expm1(vals) if is_log1p else vals)
+    ok = (k >= 0) & (k < table.numel())
+    k = torch.where(ok, k, 0).long()
+    ok &= table[k] == vals
+    return k, ok
+
+
 def hist_pass_plain(x, perm, indptr, order, table, *, is_log1p: bool):
     """Plain torch version of the kernel: same bucket rule, a gather and one
     ``scatter_add_`` over the flattened ``(g*V + bucket)*T + j`` index.
     ``order`` only schedules the kernel and does not change the result."""
     del order
-    x = _as_float32(x)
     n_groups, v_buckets, t_cols = indptr.numel() - 1, table.numel(), x.shape[1]
-    rows = x.index_select(0, perm.long())  # (n_real, T), group-contiguous
-    k = torch.round(torch.expm1(rows) if is_log1p else rows)
-    ok = (k >= 0) & (k < v_buckets)
-    k = torch.where(ok, k, 0).long()
-    ok &= table[k] == rows
+    k, ok = _buckets(x, perm, table, is_log1p=is_log1p)  # group-contiguous rows
     grp = torch.repeat_interleave(
         torch.arange(n_groups, device=x.device), torch.diff(indptr)
     )
@@ -212,21 +229,29 @@ def _check(name, t, dtype, ndim, device, fn="hist_pass"):
         )
 
 
+def _check_pass_inputs(x, perm, indptr, order, table, fn):
+    """The tile (cast to float32) after checking K1's inputs for ``fn``."""
+    x = _as_float32(x)
+    dev = x.device
+    _check("x", x, torch.float32, 2, dev, fn)
+    _check("perm", perm, torch.int32, 1, dev, fn)
+    _check("indptr", indptr, torch.int64, 1, dev, fn)
+    _check("order", order, torch.int32, 1, dev, fn)
+    _check("table", table, torch.float32, 1, dev, fn)
+    n_groups, v_buckets = indptr.numel() - 1, table.numel()
+    if order.numel() != n_groups:
+        raise ValueError(f"{fn}: order has {order.numel()} groups, indptr {n_groups}")
+    if not 1 <= v_buckets <= MAX_V:
+        raise ValueError(f"{fn}: table size {v_buckets} outside [1, {MAX_V}]")
+    return x
+
+
 def _hist_pass_cuda(x, perm, indptr, order, table, *, is_log1p: bool):
     from illico_tpu_torch.utils.cuda_build import load_library
 
-    x = _as_float32(x)
+    x = _check_pass_inputs(x, perm, indptr, order, table, "hist_pass")
     dev = x.device
-    _check("x", x, torch.float32, 2, dev)
-    _check("perm", perm, torch.int32, 1, dev)
-    _check("indptr", indptr, torch.int64, 1, dev)
-    _check("order", order, torch.int32, 1, dev)
-    _check("table", table, torch.float32, 1, dev)
     n_groups, v_buckets, t_cols = indptr.numel() - 1, table.numel(), x.shape[1]
-    if order.numel() != n_groups:
-        raise ValueError(f"hist_pass: order has {order.numel()} groups, indptr {n_groups}")
-    if not 1 <= v_buckets <= MAX_V:
-        raise ValueError(f"hist_pass: table size {v_buckets} outside [1, {MAX_V}]")
     out = torch.empty((n_groups, v_buckets, t_cols), dtype=torch.float32, device=dev)
     lib = load_library("hist_kernel")
     fn = lib.illico_hist_pass
@@ -250,10 +275,14 @@ def hist_pass(x, perm, indptr, order, table, *, is_log1p: bool):
     """(G, V, T) float32 counts ``h[g, v, j] = #{rows of g : x[r, j] == table[v]}``.
 
     ``x`` is the (n_cells, T) tile in original row order.  A CUDA tensor
-    launches ``csrc/hist_kernel.cu`` (counted in ``hist_pass.launches``); a
-    CPU tensor takes :func:`hist_pass_plain`.  Any other device raises.
-    ``hist_pass.v_buckets`` is the value-table size V of the latest call on
-    either device (None before the first).
+    launches ``csrc/hist_kernel.cu``; a CPU tensor takes
+    :func:`hist_pass_plain`.  Any other device raises.
+
+    ``hist_pass.launches`` counts a tile's grouped-histogram passes on the
+    card: each launch of this kernel (K1) and each of the fused kernel of
+    :func:`hist_pass_contract`, the same pass with the contraction in its
+    epilogue.  ``hist_pass.v_buckets`` is the value-table size V of the
+    latest call of either, on either device (None before the first).
     """
     hist_pass.v_buckets = table.numel()
     if x.device.type == "cuda":
@@ -265,6 +294,83 @@ def hist_pass(x, perm, indptr, order, table, *, is_log1p: bool):
 
 hist_pass.launches = 0
 hist_pass.v_buckets = None
+
+
+def row_counts_plain(x, rows, table, *, is_log1p: bool):
+    """Plain torch version of ``row_counts_kernel``: K1's bucket rule on the
+    rows ``rows`` of ``x`` and one ``bincount`` of the flattened ``v*T + j``
+    index, exact at any row count.  Values off the table go to one extra
+    bin, dropped after the count (cheaper than a masked copy of the keys)."""
+    v_buckets, t_cols = table.numel(), x.shape[1]
+    k, ok = _buckets(x, rows, table, is_log1p=is_log1p)
+    off = v_buckets * t_cols
+    key = torch.where(ok, k * t_cols + torch.arange(t_cols, device=x.device), off)
+    counts = torch.bincount(key.view(-1), minlength=off + 1)[:off]
+    return counts.to(torch.float64).view(v_buckets, t_cols)
+
+
+def _fused_library():
+    from illico_tpu_torch.utils.cuda_build import load_library
+
+    lib = load_library("hist_fused")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.illico_row_counts.restype = lib.illico_hist_contract.restype = i32
+    lib.illico_row_counts.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i32, i32, ptr]
+    lib.illico_hist_contract.argtypes = [ptr] * 12 + [i64, i32, i32, i32, i32, ptr]
+    return lib
+
+
+def _row_counts_cuda(x, rows, table, *, is_log1p: bool):
+    """:func:`row_counts_plain` by ``row_counts_kernel``: int32 counts
+    added into zeros by the card, then widened to float64."""
+    x = _as_float32(x)
+    dev = x.device
+    _check("x", x, torch.float32, 2, dev, "row_counts")
+    _check("rows", rows, torch.int32, 1, dev, "row_counts")
+    _check("table", table, torch.float32, 1, dev, "row_counts")
+    v_buckets, t_cols = table.numel(), x.shape[1]
+    if not 1 <= v_buckets <= MAX_V:
+        raise ValueError(f"row_counts: table size {v_buckets} outside [1, {MAX_V}]")
+    counts = torch.zeros((v_buckets, t_cols), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _fused_library().illico_row_counts(
+            x.data_ptr(), rows.data_ptr(), rows.numel(), table.data_ptr(),
+            counts.data_ptr(), t_cols, v_buckets, int(bool(is_log1p)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"row_counts kernel launch failed with cudaError_t {err}")
+    row_counts.launches += 1
+    return counts.to(torch.float64)
+
+
+def row_counts(x, rows, table, *, is_log1p: bool):
+    """(V, T) float64 counts ``c[v, j] = #{r in rows : x[r, j] == table[v]}``
+    with K1's bucket rule: a group's row of :func:`hist_pass`, or the sum
+    of several, from the rows alone.  ``rows`` (int32) indexes ``x``'s rows:
+    the reference group's rows give OVO's reference counts, every real row
+    OVR's value counts.  A CUDA tensor launches ``csrc/hist_fused.cu``'s
+    ``row_counts_kernel`` (counted in ``row_counts.launches``); a CPU
+    tensor takes :func:`row_counts_plain`.  Any other device raises."""
+    if x.device.type == "cuda":
+        return _row_counts_cuda(x, rows, table, is_log1p=is_log1p)
+    if x.device.type == "cpu":
+        return row_counts_plain(x, rows, table, is_log1p=is_log1p)
+    raise ValueError(f"row_counts: unsupported device {x.device}")
+
+
+row_counts.launches = 0
+
+
+def counting_rows(real_counts: np.ndarray, perm, ref_code: int):
+    """The rows whose value counts the contraction's tables need, as a view
+    of ``perm`` (:func:`prepare_hist_inputs`), from the real rows per group
+    (:func:`real_rows_per_group`): the reference group's real rows in OVO,
+    every real row in OVR (``ref_code == -1``)."""
+    if ref_code == -1:
+        return perm
+    lo = int(real_counts[:ref_code].sum())
+    return perm[lo : lo + int(real_counts[ref_code])]
 
 
 def hist_stat_bounds(
@@ -616,11 +722,10 @@ def _group_sums_cuda(hist, tab, a, *, nnz_split: bool, total: bool):
     return fc_sums, main, tie, k, tot
 
 
-def _contract(
-    hist,
-    pads_per_group,
-    value_counts,
+def _contract_counts(
+    counts,
     group_sums,
+    pads_per_group,
     *,
     n_pad: float,
     ref_code: int,
@@ -633,17 +738,21 @@ def _contract(
     nnz_split: bool = False,
     fc_u8: bool = False,
     pack: bool = False,
+    mark=None,
 ):
-    """The contraction around its two sums: ``value_counts(hist)`` (OVR)
-    and ``group_sums(hist, tab, a, ...)``, plain or kernel alike; the
-    (V, T) tables and every (G, T) step after the sums are torch."""
+    """The contraction around its sums, whatever computes them: from the
+    (V, T) float64 ``counts`` (OVR: every row's value counts c; OVO: the
+    reference group's counts a) the (V, T) tables, then
+    ``group_sums(tab, a, nnz_split=, total=)`` (plain, kernel or fused
+    kernel alike), then every (G, T) step after the sums, all torch.
+    ``mark("kernel")``, when given, is called right after the sums."""
     f64 = torch.float64
     ovr = ref_code == -1
     fc_u8 = bool(nnz_split and fc_u8)
     out = {}
     n_real = float(n_pad) - pads_per_group.to(f64).sum()
     if ovr:
-        c = value_counts(hist)
+        c = counts
         matched = c.sum(dim=0)
         tab = 2.0 * (torch.cumsum(c, dim=0) - c) + c + 1.0
         # Past 2^53 (a bucket count above 208,063) this sum rounds, so it
@@ -651,13 +760,15 @@ def _contract(
         tie_col = (c * c * c - c).sum(dim=0)
         a = None
     else:
-        a = hist[ref_code].to(f64)
+        a = counts
         tie_col = (a * a * a - a).sum(dim=0)
         if nnz_split:  # nonzero buckets only: the v=0 plane is rebuilt on the host
             a = a.clone()
             a[0] = 0.0
         tab = 2.0 * (torch.cumsum(a, dim=0) - a) + a
-    fc_sums, main, tie, k, tot = group_sums(hist, tab, a, nnz_split=nnz_split, total=not ovr)
+    fc_sums, main, tie, k, tot = group_sums(tab, a, nnz_split=nnz_split, total=not ovr)
+    if mark is not None:
+        mark("kernel")
     if not ovr:
         matched = tot.sum(dim=0)
     out["overflow_cols"] = matched < n_real
@@ -692,6 +803,17 @@ def _contract(
         nnz_split=nnz_split, fc_u8=fc_u8,
     ))
     return pack_device_outputs(out, narrow)[0]
+
+
+def _contract(hist, pads_per_group, value_counts, group_sums, *, ref_code: int, **statics):
+    """The contraction of a (G, V, T) histogram around its two sums:
+    ``value_counts(hist)`` (OVR; OVO takes the reference's row of ``hist``)
+    and ``group_sums(hist, tab, a, ...)``, plain or kernel alike."""
+    counts = value_counts(hist) if ref_code == -1 else hist[ref_code].to(torch.float64)
+    return _contract_counts(
+        counts, lambda tab, a, **kw: group_sums(hist, tab, a, **kw), pads_per_group,
+        ref_code=ref_code, **statics,
+    )
 
 
 def hist_contract_plain(hist, pads_per_group, **statics):
@@ -744,6 +866,99 @@ hist_contract.launches = 0
 _CONTRACT_ENTRY = hist_contract
 
 
+def _grouped_sums_cuda(x, perm, indptr, order, table, tab, a, *, is_log1p: bool,
+                       nnz_split: bool, total: bool):
+    """:func:`_group_sums_plain` of :func:`hist_pass`'s histogram by
+    ``grouped_hist_contract_kernel``, one launch from the tile itself: the
+    histogram stays in each CTA's shared memory.  Counted in
+    ``hist_pass.launches`` (the tile's grouped pass) and in
+    ``hist_pass_contract.launches``."""
+    f64 = torch.float64
+    x = _check_pass_inputs(x, perm, indptr, order, table, "hist_pass_contract")
+    dev = x.device
+    n_groups, v_buckets, t_cols = indptr.numel() - 1, table.numel(), x.shape[1]
+    for name, t in (("tab", tab), ("a", a)):
+        if t is not None:
+            _check(name, t, f64, 2, dev, "hist_pass_contract")
+            if tuple(t.shape) != (v_buckets, t_cols):
+                raise ValueError(f"hist_pass_contract: {name} has shape {tuple(t.shape)}, "
+                                 f"expected {(v_buckets, t_cols)}")
+
+    def new():
+        return torch.empty((n_groups, t_cols), dtype=f64, device=dev)
+
+    fc_sums, main = new(), new()
+    tie = new() if a is not None else None
+    k = new() if nnz_split else None
+    tot = new() if total else None
+    args = (x, perm, indptr, order, table, tab, a, fc_sums, main, tie, k, tot)
+    with torch.cuda.device(dev):
+        err = _fused_library().illico_hist_contract(
+            *(None if t is None else t.data_ptr() for t in args),
+            t_cols, n_groups, v_buckets, int(bool(is_log1p)), int(bool(nnz_split)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"hist_pass_contract kernel launch failed with cudaError_t {err}")
+    hist_pass.launches += 1
+    _FUSED_ENTRY.launches += 1
+    return fc_sums, main, tie, k, tot
+
+
+def hist_pass_contract_plain(x, perm, indptr, order, table, pads_per_group, *,
+                             count_rows, is_log1p: bool, mark=None, **statics):
+    """Plain torch version of :func:`hist_pass_contract` on any device:
+    :func:`hist_contract_plain` of :func:`hist_pass_plain`'s histogram, the
+    tables' counts taken by :func:`row_counts_plain`."""
+    x = _as_float32(x)  # a narrow wire dtype is cast once for both passes
+    hist = hist_pass_plain(x, perm, indptr, order, table, is_log1p=is_log1p)
+    counts = row_counts_plain(x, count_rows, table, is_log1p=is_log1p)
+    return _contract_counts(
+        counts, lambda tab, a, **kw: _group_sums_plain(hist, tab, a, **kw), pads_per_group,
+        mark=mark, **statics,
+    )
+
+
+def hist_pass_contract(x, perm, indptr, order, table, pads_per_group, *, count_rows,
+                       is_log1p: bool, mark=None, **statics):
+    """:func:`hist_contract` of :func:`hist_pass`'s histogram, without the
+    histogram: the same outputs, bit for bit where the statics' tiers are
+    exact (below 2^53).
+
+    A CUDA tile launches ``csrc/hist_fused.cu``: :func:`row_counts` of
+    ``count_rows`` (:func:`counting_rows`: OVO's reference rows, or every
+    real row in OVR) gives the (V, T) tables' counts, then
+    ``grouped_hist_contract_kernel`` contracts each (group, 32-column)
+    block in shared memory (counted in ``hist_pass.launches`` and in
+    ``hist_pass_contract.launches``; ``hist_contract.launches`` does not
+    move).  A CPU tile takes :func:`hist_pass_contract_plain`.  Any other
+    device raises.  ``statics`` are :func:`hist_contract`'s keywords;
+    ``mark("kernel")``, when given, is called after the grouped pass (the
+    counting pass and the tables before it included), before the (G, T)
+    steps.  Sets ``hist_pass.v_buckets``."""
+    hist_pass.v_buckets = table.numel()
+    if x.device.type == "cpu":
+        return hist_pass_contract_plain(x, perm, indptr, order, table, pads_per_group,
+                                        count_rows=count_rows, is_log1p=is_log1p,
+                                        mark=mark, **statics)
+    if x.device.type != "cuda":
+        raise ValueError(f"hist_pass_contract: unsupported device {x.device}")
+    x = _as_float32(x)  # a narrow wire dtype is cast once for both passes
+
+    def group_sums(tab, a, **kw):
+        return _grouped_sums_cuda(x, perm, indptr, order, table, tab, a,
+                                  is_log1p=is_log1p, **kw)
+
+    counts = _row_counts_cuda(x, count_rows, table, is_log1p=is_log1p)
+    return _contract_counts(counts, group_sums, pads_per_group, mark=mark, **statics)
+
+
+hist_pass_contract.launches = 0
+# The counter's owner, reached without the module's name: a caller may wrap
+# ``hist_engine.hist_pass_contract`` from outside (``tail_overlap.py`` does).
+_FUSED_ENTRY = hist_pass_contract
+
+
 def make_hist_tile_fn(
     layout: PaddedLayout,
     *,
@@ -759,23 +974,29 @@ def make_hist_tile_fn(
     """Histogram-engine tile function with the layout staged on ``device``.
 
     ``run(x, mark=None)`` returns the tile's packed uint8 buffer on the
-    device (``pack=False``: the plain dict of float64 tensors).
-    ``mark(name)``, when given, is called after the histogram pass
-    (``"kernel"``) and after the contraction (``"contract"``), so the caller
-    can time the kernel, the contraction and the pack apart.  A tile of
+    device (``pack=False``: the plain dict of float64 tensors), from
+    :func:`hist_pass_contract`: on the card the grouped pass contracts
+    each group in shared memory and no (G, V, T) histogram is made.
+    ``mark(name)``, when given, is called after the grouped pass
+    (``"kernel"``: the counting pass, the (V, T) tables and the fused
+    kernel) and after the contraction's (G, T) steps (``"contract"``), so
+    the caller can time the kernel, the contraction and the pack apart.  A tile of
     ``T`` columns is packed at ``packed_width(T)`` columns; ``run.unpack``
     and ``run.find_spec`` read such a buffer on the host, and
     ``run._statics`` holds the wire statics of
     :func:`hist_contract_statics`.
 
-    ``hist_fn(x, mark)``, when given, takes the place of :func:`hist_pass`
-    and does its own stage marks: the cell-sharded path passes the sum of
-    its shards' histograms, on ``device``, and ``x`` is then whatever that
-    function takes.
+    ``hist_fn(x, mark)``, when given, returns the (G, V, T) histogram that
+    :func:`hist_contract` then contracts (the kernels of
+    ``csrc/hist_contract.cu`` on the card), and does its own ``"kernel"``
+    mark: the cell-sharded path passes the sum of its shards' histograms,
+    on ``device``, and ``x`` is then whatever that function takes.
     """
     validate_hist_layout(layout)
     arrs = prepare_hist_inputs(layout, v_buckets, is_log1p, device)
+    real_counts = real_rows_per_group(layout)
     pass_args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
+    count_rows = counting_rows(real_counts, arrs["perm"], ref_code)
     ppg = arrs["ppg"]
     statics = hist_contract_statics(
         layout, ref_code, v_buckets, wire=pack, fc_u8_hint=fc_u8_hint,
@@ -789,7 +1010,6 @@ def make_hist_tile_fn(
     # warm-up) share one layout, so they share one spec.
     spec_cache: dict[int, list] = {}
     find_spec, match = spec_lookup(spec_cache)
-    real_counts = real_rows_per_group(layout)
 
     def _spec_for(t_cols: int):
         width = packed_width(t_cols)
@@ -809,17 +1029,16 @@ def make_hist_tile_fn(
         return out
 
     def run(x, mark=None):
-        if hist_fn is not None:
-            hist = hist_fn(x, mark)
+        if hist_fn is None:
+            out = hist_pass_contract(x, *pass_args, ppg, count_rows=count_rows,
+                                     is_log1p=is_log1p, mark=mark, **contract_kw)
         else:
-            hist = hist_pass(x, *pass_args, is_log1p=is_log1p)
-            if mark is not None:
-                mark("kernel")
-        t_cols = hist.shape[2]
-        out = hist_contract(hist, ppg, **contract_kw)
-        del hist
+            hist = hist_fn(x, mark)
+            out = hist_contract(hist, ppg, **contract_kw)
+            del hist
         if mark is not None:
             mark("contract")
+        t_cols = out["overflow_cols"].shape[0]
         if not pack:
             return out
         _spec_for(t_cols)

@@ -2,9 +2,10 @@
 
 Each ``csrc/<stem>.cu`` has a plain C entry point and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``illico_tpu_torch/_build/<stem>-<hash>.so``
-at first use, keyed on a hash of the source and the flags, then loaded with
-``ctypes``.  Nothing here runs at import time: the package imports on hosts
-without ``nvcc`` or a GPU, where only the kernels' plain torch versions run.
+at first use, keyed on a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, then loaded with ``ctypes``.  Nothing here
+runs at import time: the package imports on hosts without ``nvcc`` or a
+GPU, where only the kernels' plain torch versions run.
 """
 
 from __future__ import annotations
@@ -49,8 +50,13 @@ def _nvcc() -> str:
 
 
 def _target(stem: str) -> Path:
-    src = SRC_DIR / f"{stem}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, keyed on its source, every header in ``csrc``
+    (``#include "....cuh"``: an edit to a shared header rebuilds each
+    library) and the flags."""
+    digest = hashlib.sha256((SRC_DIR / f"{stem}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
 
 

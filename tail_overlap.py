@@ -9,11 +9,14 @@ Draws the counts of the benchmark's ``k562_ovo_counts_cuda`` cell on the
 card (``benchmarks_torch/datagen.py``, the cell's configuration and seed),
 makes one warm-up call and ``--calls`` timed calls of the public API with
 every default, then one call under ``torch.profiler`` (``profile_dir=``, as
-the benchmark's profiled call) with named host spans wrapped around three
-functions from outside the package: ``hist_engine.hist_contract``
-("contract", one per tile), ``native.consume_tile_native``
-("tail", one per tile) and ``WilcoxonRunner._recompute_with_sort_engine``
-("fallback").  Wrapping from outside reads any tree of the package alike.
+the benchmark's profiled call) with named host spans wrapped around the
+functions that do the work, from outside the package:
+``hist_engine.hist_pass_contract`` ("contract", one per tile: the fused
+grouped pass and its contraction) and, where it runs (the cell mesh, or a
+tree older than the fused pass), ``hist_engine.hist_contract`` (also
+"contract"), ``native.consume_tile_native`` ("tail", one per tile) and
+``WilcoxonRunner._recompute_with_sort_engine`` ("fallback").  Wrapping
+from outside reads any tree of the package alike.
 
 From the trace (:func:`overlap_from_trace`): how long the host spends
 inside ``cudaLaunchKernel`` (a launch that waits for room in the card's
@@ -59,16 +62,22 @@ def named_spans():
                 return fn(*args, **kwargs)
         return wrapped
 
-    saved = (hist_engine.hist_contract, native.consume_tile_native,
-             WilcoxonRunner._recompute_with_sort_engine)
-    hist_engine.hist_contract = wrap(saved[0], "contract")
-    native.consume_tile_native = wrap(saved[1], "tail")
-    WilcoxonRunner._recompute_with_sort_engine = wrap(saved[2], "fallback")
+    targets = [(owner, name, span) for owner, name, span in (
+        # A tile's contraction: the fused pass on one device, or the
+        # histogram's under the cell mesh and in trees without the fused pass.
+        (hist_engine, "hist_pass_contract", "contract"),
+        (hist_engine, "hist_contract", "contract"),
+        (native, "consume_tile_native", "tail"),
+        (WilcoxonRunner, "_recompute_with_sort_engine", "fallback"),
+    ) if hasattr(owner, name)]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    for owner, name, span in targets:
+        setattr(owner, name, wrap(getattr(owner, name), span))
     try:
         yield
     finally:
-        (hist_engine.hist_contract, native.consume_tile_native,
-         WilcoxonRunner._recompute_with_sort_engine) = saved
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
 
 
 def _union(spans):

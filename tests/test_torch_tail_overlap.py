@@ -1,8 +1,9 @@
 """``tail_overlap.py``: the named host spans and the trace's reading, on the CPU.
 
-The spans wrap three functions from outside the package and are taken away
-after the block; a profiled CPU call carries one "contract" and one "tail"
-span per tile.  The reading of a crafted trace (two tiles, their launches,
+The spans wrap the package's functions from outside and are taken away after
+the block; a profiled CPU call carries one "contract" span (the fused pass,
+``hist_engine.hist_pass_contract``) and one "tail" span per tile.  The
+reading of a crafted trace (two tiles, their launches,
 kernels and tails, then the fallback) gives each tile's contraction end on
 the card, each tail's start and the card's busy time under it, the first
 tail's lead over the last contraction and the launch statistics.
@@ -23,9 +24,13 @@ from illico_tpu_torch.models.wilcoxon import WilcoxonRunner  # noqa: E402
 from illico_tpu_torch.ops import hist_engine  # noqa: E402
 
 
+def _wrapped_functions():
+    return (hist_engine.hist_pass_contract, hist_engine.hist_contract,
+            native.consume_tile_native, WilcoxonRunner._recompute_with_sort_engine)
+
+
 def test_named_spans_mark_each_tile_and_are_taken_away(tmp_path):
-    saved = (hist_engine.hist_contract, native.consume_tile_native,
-             WilcoxonRunner._recompute_with_sort_engine)
+    saved = _wrapped_functions()
     rng = np.random.default_rng(0)
     X = rng.poisson(1.0, (3000, 300)).astype(np.float32)
     labels = np.array([f"g{i}" for i in rng.integers(0, 5, 3000)])
@@ -33,8 +38,7 @@ def test_named_spans_mark_each_tile_and_are_taken_away(tmp_path):
         df = asymptotic_wilcoxon_arrays(X, labels, reference="g0", device="cpu",
                                         progress=False, batch_size=128,
                                         profile_dir=str(tmp_path))
-    assert (hist_engine.hist_contract, native.consume_tile_native,
-            WilcoxonRunner._recompute_with_sort_engine) == saved
+    assert _wrapped_functions() == saved
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
     n_tiles = df.attrs["consume_path"]["native"]
