@@ -1779,18 +1779,49 @@ def fused_variants_check(tag, x, labels, is_log1p, v_buckets):
         del hist
 
 
-def fused_alone(tag, tile, labels, ref, v_buckets):
+def with_empty_group(arrs):
+    """K1's arrays of ``prepare_hist_inputs`` with one more group, of no
+    rows, last (the runner's layouts never have one; the kernels must still
+    write its zeros)."""
+    import torch
+
+    indptr = torch.cat([arrs["indptr"], arrs["indptr"][-1:]])
+    sizes = torch.diff(indptr).cpu().numpy()
+    order = torch.from_numpy(np.argsort(-sizes, kind="stable").astype(np.int32))
+    return {**arrs, "indptr": indptr, "order": order.to(indptr.device),
+            "ppg": torch.cat([arrs["ppg"], arrs["ppg"].new_zeros(1)])}
+
+
+def skewed_labels(n_cells, seed=SEED + 12):
+    """Labels of a skewed screen: one group of 40% of the cells, the
+    "non-targeting" reference of 10%, 300 groups of 1-3 cells and the rest
+    in groups of ~135, shuffled."""
+    rng = np.random.default_rng(seed)
+    sizes = [2 * n_cells // 5, n_cells // 10, *rng.integers(1, 4, 300)]
+    rest = n_cells - sum(sizes)
+    sizes += [135] * (rest // 135) + ([rest % 135] if rest % 135 else [])
+    names = ["big", "non-targeting", *(f"p{i}" for i in range(len(sizes) - 2))]
+    return rng.permutation(np.repeat(np.array(names), sizes))
+
+
+def fused_alone(tag, tile, labels, ref, v_buckets, empty_group=False):
     """The fused pass alone on one tile with the runner's statics at table
-    size ``v_buckets``: each kernel's time by CUDA events (the call of its
-    wrapper, mean of 10) beside its plain version's and its bound, the
-    whole pass's time (counting, tables, kernel, (G, T) steps) beside the
-    histogram path's (K1 + ``hist_contract``) and the plain pass's, and the
-    device kernels of one pass from ``torch.profiler``.  Bounds: the bytes
-    each kernel must move at 3.35 TB/s (its rows read once, its inputs and
-    outputs once), against the float64 operations of this tile's nonzero
-    (group, value, column) counts at 34 TFLOP/s (OVO 14 a count, OVR 6, as
-    12e).  ``row_counts`` is held beside ``torch.bincount`` of the same
-    tabulated keys (int64).  Returns the record."""
+    size ``v_buckets`` (``empty_group``: one more group of no rows, and the
+    pass first held bit for bit to its plain version and to K1 +
+    ``hist_contract`` by :func:`fused_check`): each kernel's time by CUDA
+    events (the call of its wrapper, mean of 10) beside its plain version's
+    and its bound, the whole pass's time (counting, tables, kernel, (G, T)
+    steps) beside the histogram path's (K1 + ``hist_contract``) and the
+    plain pass's, and the device kernels of one pass from
+    ``torch.profiler``.  Bounds: the bytes each kernel must move at 3.35
+    TB/s (its rows read once, its inputs and outputs once), against the
+    float64 operations of this tile's nonzero (group, value, column) counts
+    at 34 TFLOP/s (OVO 14 a count, OVR 6, as 12e).  The fused kernel reads
+    the rows of every group but OVO's reference, whose counts it takes from
+    the counting pass (``bound_ms``); ``bound_ms_all_rows`` counts every
+    real row and no reference counts, as a pass that reads the reference's
+    rows would.  ``row_counts`` is held beside ``torch.bincount`` of the
+    same tabulated keys (int64).  Returns the record."""
     import torch
 
     from illico_tpu_torch.ops import hist_engine as he
@@ -1800,71 +1831,89 @@ def fused_alone(tag, tile, labels, ref, v_buckets):
     kw = {k: v for k, v in statics.items() if k != "compute_fc"}
     kw["n_pad"] = float(layout.n_pad)
     arrs = he.prepare_hist_inputs(layout, v_buckets, False, tile.device)
+    if empty_group:
+        arrs = with_empty_group(arrs)
     args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
     ppg, table = arrs["ppg"], arrs["table"]
-    rows = he.counting_rows(he.real_rows_per_group(layout), arrs["perm"], info.ref_code)
-    n_groups, t_cols = layout.n_groups, tile.shape[1]
+    real = np.diff(arrs["indptr"].cpu().numpy())
+    rows = he.counting_rows(real, arrs["perm"], info.ref_code)
+    work = he.fused_work(real, info.ref_code)
+    n_groups, t_cols = real.size, tile.shape[1]
     n_real = int(arrs["perm"].numel())
     hist = he.hist_pass(tile, *args, is_log1p=False)
+    if empty_group:
+        fused_check(f"{tag} V={v_buckets}", tile, args, ppg, rows, False, kw, hist=hist)
     nonzero = int(torch.count_nonzero(hist))
     del hist
     ovo = info.ref_code != -1
     captured = {}
+    counts = he.row_counts(tile, rows, table, is_log1p=False)
 
     def capture(tab, a, **sums_kw):
         captured.update(tab=tab, a=a, kw=sums_kw)
-        return he._grouped_sums_cuda(tile, *args, tab, a, is_log1p=False, **sums_kw)
+        return he._grouped_sums_cuda(tile, *args, tab, a, is_log1p=False, work=work,
+                                     ref_counts=counts, **sums_kw)
 
-    he._contract_counts(he.row_counts(tile, rows, table, is_log1p=False), capture, ppg, **kw)
+    he._contract_counts(counts, capture, ppg, **kw)
     tab, a, sums_kw = captured["tab"], captured["a"], captured["kw"]
-    outs = he._grouped_sums_cuda(tile, *args, tab, a, is_log1p=False, **sums_kw)
+    outs = he._grouped_sums_cuda(tile, *args, tab, a, is_log1p=False, work=work,
+                                 ref_counts=counts, **sums_kw)
     out_bytes = sum(t.numel() * t.element_size() for t in outs if t is not None)
     small = sum(t.numel() * t.element_size() for t in args[1:])
     f64 = 8
-    kernel_bytes = (n_real * t_cols * 4 + n_real * 4 + small
-                    + (1 if a is None else 2) * v_buckets * t_cols * f64 + out_bytes)
+    tables = (1 if a is None else 2) * v_buckets * t_cols * f64
+    read_rows = n_real - (int(rows.numel()) if ovo else 0)
+    kernel_bytes = (read_rows * (t_cols * 4 + 4) + small + tables + out_bytes
+                    + (v_buckets * t_cols * f64 if ovo else 0))
+    all_rows_bytes = n_real * t_cols * 4 + n_real * 4 + small + tables + out_bytes
     count_bytes = rows.numel() * (t_cols * 4 + 4) + v_buckets * 4 + v_buckets * t_cols * f64
     bytes_ms = kernel_bytes / H100_BYTES_PER_S * 1e3
     ops_ms = nonzero * (14 if ovo else 6) / H100_FP64_PER_S * 1e3
     fused = {"bound_ms": max(bytes_ms, ops_ms),
              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-             "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "nonzero_counts": nonzero}
-    counts = {"bound_ms": count_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
-              "rows": int(rows.numel())}
-    rec = {"row_counts": counts, "fused": fused, "statics": kw}
+             "bound_ms_all_rows": max(all_rows_bytes / H100_BYTES_PER_S * 1e3, ops_ms),
+             "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms, "nonzero_counts": nonzero,
+             "rows_read": read_rows, "split_groups": work.n_slots,
+             "split_chunks": sum(work.split_parts)}
+    counts_rec = {"bound_ms": count_bytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                  "rows": int(rows.numel())}
+    rec = {"row_counts": counts_rec, "fused": fused, "statics": kw}
     if DEV == "cuda":
-        counts["ms"] = cuda_ms(lambda: he.row_counts(tile, rows, table, is_log1p=False),
-                               reps=10)
-        counts["plain_ms"] = cuda_ms(
+        counts_rec["ms"] = cuda_ms(lambda: he.row_counts(tile, rows, table, is_log1p=False),
+                                   reps=10)
+        counts_rec["plain_ms"] = cuda_ms(
             lambda: he.row_counts_plain(tile, rows, table, is_log1p=False), reps=3)
         vals = tile.index_select(0, rows.long())
         keys = (vals.long() * t_cols + torch.arange(t_cols, device=tile.device))[
             vals < v_buckets]
         del vals
-        counts["library_ms"] = cuda_ms(
+        counts_rec["library_ms"] = cuda_ms(
             lambda: torch.bincount(keys, minlength=v_buckets * t_cols), reps=3)
         del keys
         fused["ms"] = cuda_ms(lambda: he._grouped_sums_cuda(
-            tile, *args, tab, a, is_log1p=False, **sums_kw), reps=10)
+            tile, *args, tab, a, is_log1p=False, work=work, ref_counts=counts, **sums_kw),
+            reps=10)
         fused["plain_ms"] = cuda_ms(lambda: he._group_sums_plain(
             he.hist_pass_plain(tile, *args, is_log1p=False), tab, a, **sums_kw), reps=2)
-        for r in (counts, fused):
+        for r in (counts_rec, fused):
             r["bound_share"] = r["bound_ms"] / r["ms"]
+        fused["bound_share_all_rows"] = fused["bound_ms_all_rows"] / fused["ms"]
         call = {"ms": cuda_ms(lambda: he.hist_pass_contract(
-            tile, *args, ppg, count_rows=rows, is_log1p=False, **kw), reps=10)}
+            tile, *args, ppg, count_rows=rows, is_log1p=False, work=work, **kw), reps=10)}
         call["histogram_path_ms"] = cuda_ms(lambda: he.hist_contract(
             he.hist_pass(tile, *args, is_log1p=False), ppg, **kw), reps=5)
         call["plain_ms"] = cuda_ms(lambda: he.hist_pass_contract_plain(
             tile, *args, ppg, count_rows=rows, is_log1p=False, **kw), reps=2)
         kernels = device_kernels(lambda: he.hist_pass_contract(
-            tile, *args, ppg, count_rows=rows, is_log1p=False, **kw))
+            tile, *args, ppg, count_rows=rows, is_log1p=False, work=work, **kw))
         call["device_kernels"] = len(kernels)
         by_name: dict = {}
         for name, ms in kernels:
             by_name[name] = by_name.get(name, 0.0) + ms
         call["top_kernels"] = [[name[:100], ms] for name, ms in
                                sorted(by_name.items(), key=lambda kv: -kv[1])[:4]]
-        for stem, r in (("grouped_hist_contract_kernel", fused), ("row_counts_kernel", counts)):
+        for stem, r in (("grouped_hist_contract_kernel", fused),
+                        ("row_counts_kernel", counts_rec)):
             hits = [ms for name, ms in kernels if stem in name]
             r["kernel_ms"] = sum(hits) if hits else None  # None: the trace lost it
         rec["call"] = call
@@ -2071,6 +2120,13 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
     timed = {f"ovo_nnz_split_v{v}": fused_alone("[12f] ovo_nnz_split", tile, labels,
                                                 "non-targeting", v) for v in (128, 256, 512)}
     timed["ovr_v512"] = fused_alone("[12f] ovr", tile, labels, None, MAX_V)
+    # A skewed screen on the same tile, one empty group added: held bit for
+    # bit to plain and to K1 + hist_contract, then timed.
+    skewed = skewed_labels(tile.shape[0])
+    timed["skewed_ovo_v512"] = fused_alone("[12f] skewed ovo", tile, skewed, "non-targeting",
+                                           MAX_V, empty_group=True)
+    timed["skewed_ovr_v512"] = fused_alone("[12f] skewed ovr", tile, skewed, None, MAX_V,
+                                           empty_group=True)
     del tile
     with histogram_path(), environ("ILLICO_TPU_TAIL_THREADS", None):
         df_h, rec_h, cols_h = heavy_call("[12f] raw counts, CUDA tensor, histogram path", xd,
@@ -2341,7 +2397,7 @@ def kernels_record(stats) -> dict:
                                       for key, rec in heavy.get("by_kernel", {}).items()},
             **{f"{key}_{case}": rec[part].get(key) for case, rec in timed.items()
                for key in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms",
-                           "library_ms")},
+                           "library_ms", "bound_ms_all_rows")},
             "max_abs_err": 0.0 if main_fused else None,  # fused_check raises on any difference
             "ms": main_fused.get(part, {}).get("ms"),
             "plain_ms": main_fused.get(part, {}).get("plain_ms"),

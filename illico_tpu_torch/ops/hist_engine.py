@@ -39,6 +39,7 @@ proves from the group sizes how few bytes each statistic needs, and
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -93,6 +94,7 @@ __all__ = [
     "row_counts",
     "row_counts_plain",
     "counting_rows",
+    "fused_work",
     "make_hist_tile_fn",
     "make_value_table",
     "prepare_hist_inputs",
@@ -106,6 +108,16 @@ MAX_V = 512  # largest value table (_pick_v_buckets); counts >= MAX_V - 1 overfl
 # per (group, value).  The kernel counts in int32 but keeps the same routing
 # bound, so engine="auto" picks the same engine as the reference.
 HIST_EXACT_MAX_GROUP = 2**24
+
+# The fused kernel's split groups (:func:`fused_work`): a group longer than
+# SPLIT_ROWS real rows is counted in row chunks of at most that many rows by
+# several CTAs, which add their counts into a (V, T) int32 scratch plane, one
+# per split group and at most MAX_SPLIT_SLOTS of them (the largest groups;
+# csrc/hist_fused.cu's kMaxSplit).  Unsplit, a 120,000-row group of a
+# 300,000-cell tile holds the kernel ~1.6x as long; a 30,000-row group costs
+# less whole than split (hist_fused_probe.py, PERF.md section 6).
+SPLIT_ROWS = 32768
+MAX_SPLIT_SLOTS = 8
 
 # Group-chunk size of the plain contraction's float64 workspace:
 # hist_contract_plain never materializes more than ~this many bytes per
@@ -316,7 +328,7 @@ def _fused_library():
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.illico_row_counts.restype = lib.illico_hist_contract.restype = i32
     lib.illico_row_counts.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i32, i32, ptr]
-    lib.illico_hist_contract.argtypes = [ptr] * 12 + [i64, i32, i32, i32, i32, ptr]
+    lib.illico_hist_contract.argtypes = [ptr] * 15 + [i32, i32, i64, i32, i32, i32, ptr]
     return lib
 
 
@@ -371,6 +383,37 @@ def counting_rows(real_counts: np.ndarray, perm, ref_code: int):
         return perm
     lo = int(real_counts[:ref_code].sum())
     return perm[lo : lo + int(real_counts[ref_code])]
+
+
+class FusedWork(NamedTuple):
+    """How the fused kernel walks a layout's groups (:func:`fused_work`):
+    the groups it splits over row chunks and the group it takes from the
+    counting pass's counts.  Host data, passed to the kernel by value."""
+
+    split_groups: tuple  # group codes, largest first
+    split_parts: tuple  # row chunks of each
+    ref_code: int  # the group taken from the counting pass's counts, or -1
+
+    @property
+    def n_slots(self) -> int:
+        """(V, T) int32 scratch planes: one per split group."""
+        return len(self.split_groups)
+
+
+def fused_work(real_counts, ref_code: int) -> FusedWork:
+    """The fused kernel's split groups, from the real rows per group: the
+    ``MAX_SPLIT_SLOTS`` largest groups but OVO's reference (``ref_code >=
+    0``, contracted from its counts without reading its rows) longer than
+    ``SPLIT_ROWS`` rows, each in ``ceil(rows / SPLIT_ROWS)`` chunks of equal
+    rows (the last one shorter).  The kernel takes those chunks first, then
+    every other group in ``order`` (by size, largest first), each once per
+    32-column block.  Built once per layout by the tile function
+    (:func:`make_hist_tile_fn`)."""
+    real = np.asarray(real_counts, dtype=np.int64)
+    split = [int(g) for g in np.argsort(-real, kind="stable")
+             if real[g] > SPLIT_ROWS and g != ref_code][:MAX_SPLIT_SLOTS]
+    parts = tuple(int(-(-real[g] // SPLIT_ROWS)) for g in split)
+    return FusedWork(tuple(split), parts, int(ref_code))
 
 
 def hist_stat_bounds(
@@ -867,22 +910,34 @@ _CONTRACT_ENTRY = hist_contract
 
 
 def _grouped_sums_cuda(x, perm, indptr, order, table, tab, a, *, is_log1p: bool,
-                       nnz_split: bool, total: bool):
+                       nnz_split: bool, total: bool, work: FusedWork, ref_counts=None):
     """:func:`_group_sums_plain` of :func:`hist_pass`'s histogram by
     ``grouped_hist_contract_kernel``, one launch from the tile itself: the
-    histogram stays in each CTA's shared memory.  Counted in
+    histogram stays in each CTA's shared memory.  ``work`` is
+    :func:`fused_work` of the groups of ``indptr`` (``order`` sorts them by
+    size, largest first); when it takes the reference group from counts
+    (``work.ref_code >= 0``), ``ref_counts`` are those counts, (V, T)
+    float64 (:func:`row_counts` of the reference's rows).  The scratch (the
+    kernel's work counter, then for each split group a ticket per column
+    block and a (V, T) int32 plane) is allocated here as zeros.  Counted in
     ``hist_pass.launches`` (the tile's grouped pass) and in
     ``hist_pass_contract.launches``."""
     f64 = torch.float64
     x = _check_pass_inputs(x, perm, indptr, order, table, "hist_pass_contract")
     dev = x.device
     n_groups, v_buckets, t_cols = indptr.numel() - 1, table.numel(), x.shape[1]
-    for name, t in (("tab", tab), ("a", a)):
+    for name, t in (("tab", tab), ("a", a), ("ref_counts", ref_counts)):
         if t is not None:
             _check(name, t, f64, 2, dev, "hist_pass_contract")
             if tuple(t.shape) != (v_buckets, t_cols):
                 raise ValueError(f"hist_pass_contract: {name} has shape {tuple(t.shape)}, "
                                  f"expected {(v_buckets, t_cols)}")
+    if work.ref_code >= 0 and ref_counts is None:
+        raise ValueError("hist_pass_contract: the work takes the reference group from "
+                         "ref_counts, and none were given")
+    if not (work.ref_code < n_groups and all(0 <= g < n_groups for g in work.split_groups)
+            and len(work.split_groups) <= MAX_SPLIT_SLOTS):
+        raise ValueError(f"hist_pass_contract: {work} does not fit {n_groups} groups")
 
     def new():
         return torch.empty((n_groups, t_cols), dtype=f64, device=dev)
@@ -891,12 +946,19 @@ def _grouped_sums_cuda(x, perm, indptr, order, table, tab, a, *, is_log1p: bool,
     tie = new() if a is not None else None
     k = new() if nnz_split else None
     tot = new() if total else None
-    args = (x, perm, indptr, order, table, tab, a, fc_sums, main, tie, k, tot)
+    n_blocks = -(-t_cols // 32)
+    scratch = torch.zeros(1 + work.n_slots * (n_blocks + v_buckets * t_cols),
+                          dtype=torch.int32, device=dev)
+    split = (ctypes.c_int32 * (1 + 2 * work.n_slots))(
+        work.n_slots, *work.split_groups, *work.split_parts)
+    args = (x, perm, indptr, order)
+    tail = (table, tab, a, ref_counts, fc_sums, main, tie, k, tot, scratch)
     with torch.cuda.device(dev):
         err = _fused_library().illico_hist_contract(
-            *(None if t is None else t.data_ptr() for t in args),
-            t_cols, n_groups, v_buckets, int(bool(is_log1p)), int(bool(nnz_split)),
-            torch.cuda.current_stream(dev).cuda_stream,
+            *(t.data_ptr() for t in args), ctypes.addressof(split),
+            *(None if t is None else t.data_ptr() for t in tail),
+            n_groups, work.ref_code, t_cols, v_buckets, int(bool(is_log1p)),
+            int(bool(nnz_split)), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
         raise RuntimeError(f"hist_pass_contract kernel launch failed with cudaError_t {err}")
@@ -920,7 +982,8 @@ def hist_pass_contract_plain(x, perm, indptr, order, table, pads_per_group, *,
 
 
 def hist_pass_contract(x, perm, indptr, order, table, pads_per_group, *, count_rows,
-                       is_log1p: bool, mark=None, **statics):
+                       is_log1p: bool, mark=None, work: FusedWork | None = None,
+                       **statics):
     """:func:`hist_contract` of :func:`hist_pass`'s histogram, without the
     histogram: the same outputs, bit for bit where the statics' tiers are
     exact (below 2^53).
@@ -931,8 +994,12 @@ def hist_pass_contract(x, perm, indptr, order, table, pads_per_group, *, count_r
     ``grouped_hist_contract_kernel`` contracts each (group, 32-column)
     block in shared memory (counted in ``hist_pass.launches`` and in
     ``hist_pass_contract.launches``; ``hist_contract.launches`` does not
-    move).  A CPU tile takes :func:`hist_pass_contract_plain`.  Any other
-    device raises.  ``statics`` are :func:`hist_contract`'s keywords;
+    move), along ``work`` (:func:`fused_work` of the layout: the tile
+    function builds it once; without it it is built here from ``indptr``,
+    which waits for the card).  In OVO the reference group is contracted
+    from the counting pass's counts.  A CPU tile takes
+    :func:`hist_pass_contract_plain` (``work`` unused).  Any other device
+    raises.  ``statics`` are :func:`hist_contract`'s keywords;
     ``mark("kernel")``, when given, is called after the grouped pass (the
     counting pass and the tables before it included), before the (G, T)
     steps.  Sets ``hist_pass.v_buckets``."""
@@ -944,12 +1011,14 @@ def hist_pass_contract(x, perm, indptr, order, table, pads_per_group, *, count_r
     if x.device.type != "cuda":
         raise ValueError(f"hist_pass_contract: unsupported device {x.device}")
     x = _as_float32(x)  # a narrow wire dtype is cast once for both passes
+    if work is None:
+        work = fused_work(np.diff(indptr.cpu().numpy()), statics["ref_code"])
+    counts = _row_counts_cuda(x, count_rows, table, is_log1p=is_log1p)
 
     def group_sums(tab, a, **kw):
-        return _grouped_sums_cuda(x, perm, indptr, order, table, tab, a,
-                                  is_log1p=is_log1p, **kw)
+        return _grouped_sums_cuda(x, perm, indptr, order, table, tab, a, is_log1p=is_log1p,
+                                  work=work, ref_counts=counts, **kw)
 
-    counts = _row_counts_cuda(x, count_rows, table, is_log1p=is_log1p)
     return _contract_counts(counts, group_sums, pads_per_group, mark=mark, **statics)
 
 
@@ -997,6 +1066,7 @@ def make_hist_tile_fn(
     real_counts = real_rows_per_group(layout)
     pass_args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
     count_rows = counting_rows(real_counts, arrs["perm"], ref_code)
+    work = fused_work(real_counts, ref_code)
     ppg = arrs["ppg"]
     statics = hist_contract_statics(
         layout, ref_code, v_buckets, wire=pack, fc_u8_hint=fc_u8_hint,
@@ -1031,7 +1101,8 @@ def make_hist_tile_fn(
     def run(x, mark=None):
         if hist_fn is None:
             out = hist_pass_contract(x, *pass_args, ppg, count_rows=count_rows,
-                                     is_log1p=is_log1p, mark=mark, **contract_kw)
+                                     is_log1p=is_log1p, mark=mark, work=work,
+                                     **contract_kw)
         else:
             hist = hist_fn(x, mark)
             out = hist_contract(hist, ppg, **contract_kw)

@@ -11,8 +11,14 @@
   its packed bytes equal the JAX package's tile function (its Pallas
   kernel in interpret mode) in OVO with the nnz split and in OVR;
 - the CUDA wrappers' plumbing (argument order, pointers, null arrays,
-  launch counts) runs on the CPU against a numpy rendering of the C entry
-  points of ``csrc/hist_fused.cu``;
+  launch counts, the scratch) runs on the CPU against a numpy rendering of
+  the C entry points of ``csrc/hist_fused.cu``, which walks the kernel's
+  work items (the reference group from its counts, split groups through
+  their scratch planes and tickets) and sums in the kernel's order;
+- the kernel's items (``_kernel_chunks``, a rendering of its decode from
+  ``order``, ``indptr`` and ``fused_work``) cover every (group, column
+  block, row) once, and its summation order (``_warp_order_sums``) gives
+  the plain version's sums bit for bit below 2^53;
 - the kernels themselves are held to their plain versions on the card by
   ``tests/test_torch_hist_fused_cuda.py`` and, at full width, by
   ``chip_smoke.py`` (phases 2 and 12f).
@@ -211,13 +217,90 @@ def _view(ptr, dtype, shape):
     return np.ctypeslib.as_array((ctype * n).from_address(ptr)).reshape(shape)
 
 
+def _tie_term(h, a):
+    """``illico_hist::tie_term``: each product and sum rounded on its own."""
+    return (h * h * h - h) + 3.0 * a * h * (a + h)
+
+
+def _fused_warps(v_buckets):
+    """The grouped kernel's warps a CTA at this table size: 4-warp CTAs for
+    V <= 256, 8 at V=512 (``csrc/hist_fused.cu``'s ``Tier``)."""
+    return 4 if v_buckets <= 256 else 8
+
+
+def _warp_order_sums(h, tab, a, nnz_split, warps=8):
+    """The fused kernel's sums over v of the (..., V, C) counts ``h`` in its
+    order: warp w of ``warps`` adds its buckets v = w, w + warps, ...
+    ascending, zero counts skipped, then the partial sums are added in warp
+    order; v = 0 (warp 0's first) gives h0 and, without the nnz split, main
+    and tie terms.  Returns fc, main, tie (None without ``a``), nz and tot."""
+    zero = np.zeros(h.shape[:-2] + h.shape[-1:])
+    parts = []
+    h0 = zero.copy()
+    for w in range(warps):
+        fc, main, tie, nz = zero.copy(), zero.copy(), zero.copy(), zero.copy()
+        for v in range(w, h.shape[-2], warps):
+            hv = h[..., v, :]
+            on = hv != 0
+            t = tab[v]
+            term = _tie_term(hv, a[v]) if a is not None else zero
+            if v == 0:
+                h0 = np.where(on, hv, h0)
+                if not nnz_split:
+                    main = np.where(on, main + hv * t, main)
+                    tie = np.where(on, tie + term, tie)
+                continue
+            fc = np.where(on, fc + hv * float(v), fc)
+            nz = np.where(on, nz + hv, nz)
+            main = np.where(on, main + hv * t, main)
+            tie = np.where(on, tie + term, tie)
+        parts.append((fc, main, tie, nz))
+    total = list(parts[0])
+    for part in parts[1:]:
+        total = [s + p for s, p in zip(total, part)]
+    fc, main, tie, nz = total
+    return fc, main, tie if a is not None else None, nz, nz + h0
+
+
+SKIP, FROM_COUNTS, WHOLE = -3, -2, -1  # chunk slots that are not scratch planes
+
+
+def _kernel_chunks(indptr, order, work):
+    """The grouped kernel's chunks in item order, as its decode makes them
+    (``csrc/hist_fused.cu``): (group, begin, end, slot, parts), begin and
+    end offsets into ``perm``.  First the split groups' chunks of equal rows
+    (slot: the group's scratch plane), then every group in ``order``: the
+    reference from its counts, a split group skipped, any other whole."""
+    chunks = []
+    for slot, (g, parts) in enumerate(zip(work.split_groups, work.split_parts)):
+        lo, hi = int(indptr[g]), int(indptr[g + 1])
+        step = -(-(hi - lo) // parts)
+        chunks += [(g, lo + p * step, min(lo + (p + 1) * step, hi), slot, parts)
+                   for p in range(parts)]
+    for g in (int(g) for g in order):
+        lo = int(indptr[g])
+        if g in work.split_groups:
+            chunks.append((g, lo, lo, SKIP, 1))
+        elif g == work.ref_code:
+            chunks.append((g, lo, lo, FROM_COUNTS, 1))
+        else:
+            chunks.append((g, lo, int(indptr[g + 1]), WHOLE, 1))
+    return chunks
+
+
 class _EmulatedFusedLibrary:
     """``illico_row_counts`` and ``illico_hist_contract`` on host pointers,
-    with the C signatures: the counts in numpy from the pointers, the sums
-    by the plain version's arithmetic, written where the C code writes."""
+    with the C signatures.  The grouped pass walks the kernel's items
+    (:func:`_kernel_chunks` x 32-column blocks) in order: a chunk's counts
+    from its rows, the reference's from ``ref_counts``, a split group's
+    added into its scratch plane and contracted by the chunk that takes the
+    plane's last ticket, a skipped entry nothing; the sums in the kernel's
+    order (:func:`_warp_order_sums`), written where the C code writes,
+    each (group, column block) exactly once."""
 
     def __init__(self):
         self.calls = []
+        self.split_chunks = 0
 
     def illico_row_counts(self, x, rows, n_rows, table, cnt, t_cols, v_buckets, is_log1p,
                           stream):
@@ -232,24 +315,56 @@ class _EmulatedFusedLibrary:
                                     is_log1p=bool(is_log1p)).numpy().astype(np.int32)
         return 0
 
-    def illico_hist_contract(self, x, perm, indptr, order, table, tab, ref, fc, main, tie,
-                             nz, tot, t_cols, n_groups, v_buckets, is_log1p, nnz_split,
-                             stream):
+    def illico_hist_contract(self, x, perm, indptr, order, split, table, tab, ref,
+                             ref_counts, fc, main, tie, nz, tot, scratch, n_groups, ref_code,
+                             t_cols, v_buckets, is_log1p, nnz_split, stream):
         self.calls.append("hist_contract")
         ip = _view(indptr, np.int64, (n_groups + 1,))
+        n_split = int(_view(split, np.int32, (1,))[0])
+        spec = _view(split, np.int32, (1 + 2 * n_split,))
+        work = the.FusedWork(tuple(int(g) for g in spec[1 : 1 + n_split]),
+                             tuple(int(q) for q in spec[1 + n_split :]), int(ref_code))
         p = _view(perm, np.int32, (int(ip[-1]),))
-        n_cells = int(p.max()) + 1
-        args = [torch.from_numpy(a.copy()) for a in (
-            _view(x, np.float32, (n_cells, t_cols)), p, ip,
-            _view(order, np.int32, (n_groups,)), _view(table, np.float32, (v_buckets,)))]
-        hist = the.hist_pass_plain(*args, is_log1p=bool(is_log1p))
-        tb = torch.from_numpy(_view(tab, np.float64, (v_buckets, t_cols)).copy())
-        a = torch.from_numpy(_view(ref, np.float64, (v_buckets, t_cols)).copy()) if tie else None
-        sums = the._group_sums_plain(hist, tb, a, nnz_split=bool(nnz_split), total=bool(tot))
-        for ptr, s in zip((fc, main, tie, nz, tot), sums):
-            assert (ptr is None) == (s is None)
-            if ptr is not None:
-                _view(ptr, np.float64, (n_groups, t_cols))[:] = s.numpy()
+        n_cells = int(p.max()) + 1 if p.size else 1
+        xt = torch.from_numpy(_view(x, np.float32, (n_cells, t_cols)).copy())
+        tb = torch.from_numpy(_view(table, np.float32, (v_buckets,)).copy())
+        tab_v = _view(tab, np.float64, (v_buckets, t_cols))
+        ref_v = _view(ref, np.float64, (v_buckets, t_cols)) if tie else None
+        n_blocks = -(-t_cols // 32)
+        buf = _view(scratch, np.int32, (1 + n_split * (n_blocks + v_buckets * t_cols),))
+        assert not buf.any(), "the scratch holds zeros: the work counter first"
+        tickets = buf[1 : 1 + n_split * n_blocks].reshape(n_split, n_blocks)
+        planes = buf[1 + n_split * n_blocks :].reshape(n_split, v_buckets, t_cols)
+        outs = [None if ptr is None else _view(ptr, np.float64, (n_groups, t_cols))
+                for ptr in (fc, main, tie, nz, tot)]
+        chunks = _kernel_chunks(ip, _view(order, np.int32, (n_groups,)), work)
+        written = np.zeros((n_groups, n_blocks), np.int64)
+        for item in range(len(chunks) * n_blocks):
+            (g, b, e, slot, parts), blk = chunks[item // n_blocks], item % n_blocks
+            cols = slice(blk * 32, min(blk * 32 + 32, t_cols))
+            if slot == SKIP:
+                continue
+            if slot == FROM_COUNTS:
+                h = _view(ref_counts, np.float64, (v_buckets, t_cols))[:, cols]
+            else:
+                rows = torch.from_numpy(p[b:e].copy())
+                h = the.row_counts_plain(xt[:, cols].contiguous(), rows, tb,
+                                         is_log1p=bool(is_log1p)).numpy()
+                if slot >= 0:
+                    self.split_chunks += 1
+                    planes[slot][:, cols] += h.astype(np.int32)
+                    tickets[slot, blk] += 1
+                    if tickets[slot, blk] < parts:
+                        continue
+                    h = planes[slot][:, cols].astype(np.float64)
+            sums = _warp_order_sums(h, tab_v[:, cols],
+                                    None if ref_v is None else ref_v[:, cols],
+                                    bool(nnz_split), _fused_warps(v_buckets))
+            for out, val in zip(outs, sums):
+                if out is not None:
+                    out[g, cols] = val
+            written[g, blk] += 1
+        assert (written == 1).all(), "every (group, column block) written once"
         return 0
 
 
@@ -271,9 +386,10 @@ def test_cuda_wrappers_with_an_emulated_library(variant, monkeypatch):
     counters = (the.hist_pass, the.hist_pass_contract, the.row_counts, the.hist_contract)
     before = [c.launches for c in counters]
     counts = the._row_counts_cuda(xt, rows, args[3], is_log1p=False)
+    work = the.fused_work(np.diff(args[1].numpy()), info.ref_code)
     got = the._contract_counts(
-        counts, lambda tab, a, **k: the._grouped_sums_cuda(xt, *args, tab, a, is_log1p=False,
-                                                           **k), ppg, **kw)
+        counts, lambda tab, a, **k: the._grouped_sums_cuda(
+            xt, *args, tab, a, is_log1p=False, work=work, ref_counts=counts, **k), ppg, **kw)
     assert lib.calls == ["row_counts", "hist_contract"]
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 0]
     want = the.hist_pass_contract_plain(xt, *args, ppg, count_rows=rows, is_log1p=False, **kw)
@@ -281,6 +397,139 @@ def test_cuda_wrappers_with_an_emulated_library(variant, monkeypatch):
     for k, w in want.items():
         assert got[k].dtype == w.dtype, k
         np.testing.assert_array_equal(got[k].numpy(), w.numpy(), err_msg=k)
+
+
+def _skewed_labels(rng, n_cells, named, tiny):
+    """Groups of the sizes ``named`` (name -> cells), ``tiny`` groups of
+    1-3 cells and the rest in groups of 40 (the last one shorter)."""
+    sizes = [*named.values(), *rng.integers(1, 4, tiny)]
+    rest = n_cells - sum(sizes)
+    sizes += [40] * (rest // 40) + ([rest % 40] if rest % 40 else [])
+    names = [*named, *(f"g{i}" for i in range(len(sizes) - len(named)))]
+    return rng.permutation(np.repeat(np.array(names), sizes))
+
+
+@pytest.mark.parametrize("ovo", [False, True], ids=["ovr", "ovo"])
+def test_cuda_wrappers_split_groups_with_an_emulated_library(ovo, monkeypatch):
+    """A skewed tile with the split threshold lowered to 60 rows and two
+    scratch planes: the two largest groups past it are split (in OVO the
+    big group and "mid", the reference coming from its counts; in OVR the
+    big group and the reference) and the others stay whole.  The emulated
+    kernel walks its chunks through the scratch planes and equals the
+    plain pass, bit for bit."""
+    rng = np.random.default_rng(21)
+    labels = _skewed_labels(rng, 900, {"big": 400, "ref": 150, "mid": 100, "mid2": 70}, 30)
+    x = rng.poisson(1.0, (labels.size, 70)).astype(np.float32)
+    x[rng.random(x.shape) < 0.5] = 0
+    xt, args, ppg, rows, layout, info = fused_inputs(x, labels, 128, False,
+                                                     "ref" if ovo else None, CPU,
+                                                     empty_group=True)
+    lib = _emulate(monkeypatch)
+    monkeypatch.setattr(the, "SPLIT_ROWS", 60)
+    monkeypatch.setattr(the, "MAX_SPLIT_SLOTS", 2)
+    kw = dict(n_pad=float(layout.n_pad), ref_code=info.ref_code)
+    counts = the._row_counts_cuda(xt, rows, args[3], is_log1p=False)
+    work = the.fused_work(np.diff(args[1].numpy()), info.ref_code)
+    assert work.n_slots == 2 and (work.ref_code >= 0) is ovo
+    got = the._contract_counts(
+        counts, lambda tab, a, **k: the._grouped_sums_cuda(
+            xt, *args, tab, a, is_log1p=False, work=work, ref_counts=counts, **k), ppg, **kw)
+    # 70 columns: three blocks; 400 rows in 7 parts, 100 in 2, 150 in 3.
+    assert lib.split_chunks == (7 + (2 if ovo else 3)) * 3
+    want = the.hist_pass_contract_plain(xt, *args, ppg, count_rows=rows, is_log1p=False, **kw)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), w.numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("sizes", [
+    [0, 135, 3, 0, 1, 2],
+    [9000, 40, 3, 1, 0, 2],  # one group of ~90%
+    [77],  # G=1
+    [2 * the.SPLIT_ROWS + 3616, the.SPLIT_ROWS + 808, the.SPLIT_ROWS + 1, the.SPLIT_ROWS,
+     30, 0],
+    "drawn",
+], ids=["empty_groups", "one_90pct_group", "one_group", "at_the_threshold", "drawn"])
+@pytest.mark.parametrize("ref", [None, "first", "largest"])
+@pytest.mark.parametrize("t_cols", [45, 64])
+def test_fused_work_covers_every_group_block_and_row_once(sizes, ref, t_cols, monkeypatch):
+    """The kernel's items (each chunk once per 32-column block, as its
+    decode makes them from ``order``, ``indptr`` and ``fused_work``) cover
+    every (group, column block, row) exactly once: the reference's rows
+    through its counts (one row-free chunk per block), a split group's
+    through its parts (each at most ``SPLIT_ROWS`` rows, sharing one
+    scratch plane; its own entry in ``order`` skipped), every other group
+    through one chunk of all its rows.  The split groups are the largest
+    ones but the reference past ``SPLIT_ROWS``, at most ``MAX_SPLIT_SLOTS``
+    (2 here), and their chunks come first."""
+    monkeypatch.setattr(the, "MAX_SPLIT_SLOTS", 2)
+    if sizes == "drawn":
+        rng = np.random.default_rng(5)
+        sizes = rng.choice([0, 1, 3, 40, 135, 9000, the.SPLIT_ROWS + 7232], 60)
+    real = np.asarray(sizes, np.int64)
+    ref_code = {None: -1, "first": 0, "largest": int(np.argmax(real))}[ref]
+    indptr = np.concatenate([[0], np.cumsum(real)])
+    order = np.argsort(-real, kind="stable")
+    work = the.fused_work(real, ref_code)
+    chunks = _kernel_chunks(indptr, order, work)
+    n_blocks = -(-t_cols // 32)
+    covered = np.zeros((n_blocks, int(real.sum())), np.int64)
+    from_counts = np.zeros((real.size, n_blocks), np.int64)
+    for item in range(len(chunks) * n_blocks):
+        (g, b, e, slot, parts), blk = chunks[item // n_blocks], item % n_blocks
+        assert indptr[g] <= b <= e <= indptr[g + 1]
+        if slot == FROM_COUNTS:
+            assert g == ref_code and b == e
+            from_counts[g, blk] += 1
+        covered[blk, b:e] += 1
+    ref_rows = np.zeros(covered.shape[1], bool)
+    if ref_code >= 0:
+        ref_rows[indptr[ref_code] : indptr[ref_code + 1]] = True
+        assert (from_counts[ref_code] == 1).all() and from_counts.sum() == n_blocks
+    assert (covered[:, ~ref_rows] == 1).all() and not covered[:, ref_rows].any()
+    big = [g for g in np.argsort(-real, kind="stable") if g != ref_code][:2]
+    assert list(work.split_groups) == [g for g in big if real[g] > the.SPLIT_ROWS]
+    n_split = sum(work.split_parts)
+    assert all(c[3] >= 0 for c in chunks[:n_split]) and all(c[3] < 0 for c in chunks[n_split:])
+    for slot, (g, parts) in enumerate(zip(work.split_groups, work.split_parts)):
+        mine = [c for c in chunks if c[0] == g]
+        assert [c[3] for c in mine] == [slot] * parts + [SKIP]
+        assert all(0 < e - b <= the.SPLIT_ROWS for _, b, e, *_ in mine[:-1])
+    assert len(chunks) == n_split + real.size  # a split group's own entry is skipped
+
+
+@pytest.mark.parametrize("scale", [2.0**52, 2.0**55], ids=["below_2_53", "past_2_53"])
+@pytest.mark.parametrize("nnz_split", [False, True])
+@pytest.mark.parametrize("v_buckets", [256, 512])
+def test_warp_order_sums_match_the_plain_bucket_order(scale, nnz_split, v_buckets):
+    """The kernel's order of the sums over v (warp classes, then the warps'
+    partials; 4 warps at V=256, 8 at V=512) against the plain version's
+    torch reductions, with integer terms whose sums come near ``scale``: bit
+    for bit below 2^53, within rtol 1e-13 past it (where either order
+    rounds)."""
+    rng = np.random.default_rng(17)
+    t_cols, n_groups = 37, 3
+    h = rng.integers(0, 4, (n_groups, v_buckets, t_cols)).astype(np.float64)
+    h[rng.random(h.shape) < 0.6] = 0
+    h[:, 0] = rng.integers(0, 5, (n_groups, t_cols))
+    # tab: integers whose products with h sum to just under (or past) scale.
+    per = np.floor(scale / (h.sum(axis=1).max() + 1.0) / 2.0)
+    tab = rng.integers(int(per // 2), int(per), (v_buckets, t_cols)).astype(np.float64)
+    a = rng.integers(0, int(round((scale / 1e3) ** (1 / 3))), (v_buckets, t_cols)).astype(
+        np.float64)
+    got = _warp_order_sums(h, tab, a, nnz_split, _fused_warps(v_buckets))
+    want = the._group_sums_plain(torch.from_numpy(h).float(), torch.from_numpy(tab),
+                                 torch.from_numpy(a), nnz_split=nnz_split, total=True)
+    assert float(got[1].max()) > scale / 4
+    for name, g, w in zip(("fc", "main", "tie", "nz", "tot"), got, want):
+        if w is None:  # nz: written under the nnz split only
+            continue
+        w = w.numpy()
+        if scale < 2.0**53:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-13, atol=0, err_msg=name)
+    if scale < 2.0**53:
+        assert float(got[1].max()) < 2.0**53
 
 
 def test_cuda_wrappers_check_their_inputs(monkeypatch):
@@ -294,15 +543,48 @@ def test_cuda_wrappers_check_their_inputs(monkeypatch):
         the._row_counts_cuda(xt, rows.long(), table, is_log1p=False)
     with pytest.raises(ValueError, match="table size 513 outside"):
         the._row_counts_cuda(xt, rows, torch.zeros(513), is_log1p=False)
+    work = the.fused_work(np.diff(indptr.numpy()), -1)
     with pytest.raises(ValueError, match="order has"):
         the._grouped_sums_cuda(xt, perm, indptr, order[:-1], table, tab, None,
-                               is_log1p=False, nnz_split=False, total=False)
+                               is_log1p=False, nnz_split=False, total=False, work=work)
     with pytest.raises(ValueError, match="tab has shape"):
         the._grouped_sums_cuda(xt, perm, indptr, order, table, tab[:, :-1].contiguous(), None,
-                               is_log1p=False, nnz_split=False, total=False)
+                               is_log1p=False, nnz_split=False, total=False, work=work)
     with pytest.raises(ValueError, match="a must be a contiguous 2-d torch.float64"):
         the._grouped_sums_cuda(xt, perm, indptr, order, table, tab, tab.float(),
-                               is_log1p=False, nnz_split=False, total=False)
+                               is_log1p=False, nnz_split=False, total=False, work=work)
+
+
+def test_grouped_sums_check_the_work_list(monkeypatch):
+    """Work that takes the reference group from counts needs those counts,
+    (V, T) float64, and work for other groups is refused."""
+    xt, args, ppg, rows, layout, info = _problem(8, 128, False, True)
+    _emulate(monkeypatch)
+    tab = torch.zeros((128, xt.shape[1]), dtype=torch.float64)
+    sizes = np.diff(args[1].numpy())
+    work = the.fused_work(sizes, info.ref_code)
+    kw = dict(is_log1p=False, nnz_split=False, total=True)
+    with pytest.raises(ValueError, match="takes the reference group from ref_counts"):
+        the._grouped_sums_cuda(xt, *args, tab, tab, work=work, **kw)
+    with pytest.raises(ValueError, match="ref_counts has shape"):
+        the._grouped_sums_cuda(xt, *args, tab, tab, work=work, ref_counts=tab[:-1], **kw)
+    for bad in (work._replace(ref_code=sizes.size), work._replace(split_groups=(sizes.size,),
+                                                                  split_parts=(2,))):
+        with pytest.raises(ValueError, match="does not fit"):
+            the._grouped_sums_cuda(xt, *args, tab, tab, work=bad, ref_counts=tab, **kw)
+
+
+def test_probe_variants_edit_the_sources():
+    """Every diagnostic variant of ``hist_fused_probe.py`` edits text that
+    the kernel's sources hold once, so the probe builds what it says."""
+    import hist_fused_probe
+
+    text = "".join((cuda_build.SRC_DIR / f).read_text()
+                   for f in ("hist_fused.cu", "hist_common.cuh"))
+    assert hist_fused_probe.VARIANTS["shipped"] == {}
+    for name, edits in hist_fused_probe.VARIANTS.items():
+        for anchor in edits:
+            assert text.count(anchor) == 1, (name, anchor)
 
 
 def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):

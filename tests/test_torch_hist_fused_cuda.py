@@ -2,6 +2,10 @@
 its plain torch version and against K1 + the contraction kernels, on the
 same tiles.
 
+The skewed shape has one group past ``SPLIT_ROWS`` (counted in row chunks
+through a scratch plane), a reference taken from its counts in OVO, 200
+groups of 1-3 cells and an empty group.
+
 Every test here needs a CUDA device and skips without one.  The file
 imports torch and the port only, so on a machine without jax it runs
 alone: ``python -m pytest --noconftest -p no:randomly -m cuda
@@ -45,8 +49,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
+SKEWED = 0  # n_groups of the skewed shape: see _skewed_case
+
+
+def _skewed_case(seed, n_cells, t_cols):
+    """Counts as ``_card_case``'s; labels with one group of two thirds of
+    the cells (past ``SPLIT_ROWS``: split over row chunks), a reference of
+    10%, 200 groups of 1-3 cells and the rest in groups of ~135."""
+    x, _ = _card_case(seed, n_cells, t_cols, 2)
+    rng = np.random.default_rng(seed + 1)
+    sizes = [2 * n_cells // 3, n_cells // 10, *rng.integers(1, 4, 200)]
+    rest = n_cells - sum(sizes)
+    sizes += [135] * (rest // 135) + ([rest % 135] if rest % 135 else [])
+    names = ["big", "ref", *(f"g{i}" for i in range(len(sizes) - 2))]
+    assert sizes[0] > the.SPLIT_ROWS
+    return x, rng.permutation(np.repeat(np.array(names), sizes))
+
+
 def _log1p_case(seed, n_cells, t_cols, n_groups, is_log1p):
-    x, labels = _card_case(seed, n_cells, t_cols, n_groups)
+    if n_groups == SKEWED:
+        x, labels = _skewed_case(seed, n_cells, t_cols)
+    else:
+        x, labels = _card_case(seed, n_cells, t_cols, n_groups)
     if is_log1p:
         x = np.log1p(x).astype(np.float32)
     return x, labels
@@ -82,7 +106,8 @@ def test_cuda_row_counts_match_plain(cuda_device, v_buckets, is_log1p):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("v_buckets", [128, 512])
 @pytest.mark.parametrize("is_log1p", [False, True], ids=["raw", "log1p"])
-@pytest.mark.parametrize("shape", [(6000, 1000, 40), (3000, 333, 9)], ids=["even", "odd_width"])
+@pytest.mark.parametrize("shape", [(6000, 1000, 40), (3000, 333, 9), (60000, 100, SKEWED)],
+                         ids=["even", "odd_width", "skewed"])
 def test_cuda_fused_matches_plain_and_histogram_path(cuda_device, variant, v_buckets,
                                                      is_log1p, shape):
     ovo = VARIANTS[variant][0]
