@@ -22,9 +22,12 @@ Phases, each printing its own lines:
    version on the card, bit for bit: V in {128, 256, 512}, raw and log1p
    tables, T=1000, 2000 groups including a 1-cell group, adversarial values
    (NaN, +-inf, -0.0, 0.5, -1, 511, 600, 1e30) and a uint8 tile; on each of
-   those six histograms the contraction kernels (``csrc/hist_contract.cu``)
-   against ``hist_contract_plain``, bit for bit: OVR with the R2 and fc row
-   splits, OVO with the nnz split (and fc_u8) and without it; and in the
+   those six histograms the contraction kernel (``csrc/hist_contract.cu``:
+   ``contract_kernel``) against ``hist_contract_plain``, bit for bit, from
+   the histogram alone (S=1) and from the two histograms of its rows in two
+   cell shards (S=2, the tables' counts from the shards' rows): OVR with
+   the R2 and fc row splits, OVO with the nnz split (and fc_u8) and
+   without it, one launch each; and in the
    same three variants the fused pass (``csrc/hist_fused.cu``:
    ``row_counts_kernel`` and ``grouped_hist_contract_kernel``) on the same
    tile against its plain version and against the contraction of K1's
@@ -44,7 +47,7 @@ Phases, each printing its own lines:
    with the per-stage split and a scipy spot check; every tile must take
    the native tail, and each call launch the fused pass (one
    ``row_counts_kernel`` and one ``grouped_hist_contract_kernel``, neither K1
-   nor the histogram's contraction kernels) for its warm-up and once per
+   nor the histogram's ``contract_kernel``) for its warm-up and once per
    tile (phase 9 holds its calls to the same counts); then K1's own time at
    that shape (CUDA events) beside its memory bound, its plain version and
    ``torch.bincount``;
@@ -87,9 +90,13 @@ Phases, each printing its own lines:
     (gene mesh) and (c) ``devices=(2, 1)`` (cell mesh, host input and a CUDA
     tensor), OVO and OVR: frames equal phase 5's bit for bit, every shard
     tile on the native tail, stage seconds per device, the lead device's
-    peak memory and the histogram add timed alone; each gene shard takes the
-    fused pass, the cell mesh K1 and the histogram's contraction kernels
-    (each path's launches counted from 0 by kernel and held); (d)
+    peak memory held to what the tile planner charges it (every shard's
+    histogram at once), and the lead's part of one two-shard tile at V=512
+    timed alone (``lead_alone``: the shards' histograms made first; OVR's
+    row counts and the contraction); each gene shard takes the
+    fused pass, the cell mesh K1 and the histogram's ``contract_kernel``,
+    and in OVR ``row_counts_kernel`` on each shard's rows (each path's
+    launches counted from 0 by kernel and held); (d)
     ``simulate_multihost`` with 2 hosts x 1 device at full width, and two
     real processes joined by gloo, both on the card, at phase 4's size and
     at full width (each makes the matrix from the seed and computes its
@@ -134,14 +141,18 @@ Phases, each printing its own lines:
     top device kernels of one 128-column chunk under ``torch.profiler``; (d) K1
     alone on one full 2,048-column tile at V=256 and V=512, bit for bit
     against its plain version, timed beside its byte bound, its plain
-    version and ``torch.bincount``; (e) the contraction kernels alone on the
+    version and ``torch.bincount``; (e) ``contract_kernel`` alone on the
    V=512 histogram of that tile (G=2,000) with the statics the runner
    derives: OVO with the nnz split (the benchmark's path), OVO with it off,
-   OVR with the R2 row split on the control; each bit for bit against
-   ``hist_contract_plain``, its kernel launches and every device kernel of
-   one call counted, timed by CUDA events beside the plain version and the
-   bound (the histogram read once and the outputs written once, against
-   the float64 operations of its nonzero counts); (f) the fused pass on
+   OVR with the R2 row split on the control; each from its two cell
+   shards' histograms (S=2, the shape the cell mesh gives it, and the
+   kernels line's figure) and from the histogram alone (S=1, a proxy no
+   path takes), the tables' counts given from the rows; each bit for bit
+   against ``hist_contract_plain``,
+   its launch and every device kernel of one call counted, timed by CUDA
+   events beside the plain version and the bound (each histogram read once
+   and the outputs written once, against the float64 operations of the
+   summed histogram's nonzero counts); (f) the fused pass on
    that tile: ``row_counts_kernel`` and ``grouped_hist_contract_kernel``
    bit for bit against their plain versions and against K1 +
    ``hist_contract`` in six statics variants at V=128, 256 and 512, raw and
@@ -176,8 +187,9 @@ Any failure raises and exits non-zero; the two worker processes of phase
 kernels' JSON record (:func:`kernels_record`), the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` there is its
 count on its own path, from 0 just before it: the fused pass's two kernels
-on phase 5's four calls (one device), K1 and the contraction kernels on
-phase 10c's four (the cell mesh, which sums its shards' histograms).
+on phase 5's four calls (one device), K1 and ``contract_kernel`` on phase
+10c's four (the cell mesh, whose lead contracts its shards' histograms
+without adding them).
 """
 
 from __future__ import annotations
@@ -280,7 +292,10 @@ def phase_build():
     stems = sorted(p.stem for p in SRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
     build_libraries(stems)
-    print(f"[1] built {stems} in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[1] built {stems} in {time.perf_counter() - t0:.2f} s; each nvcc done at "
+          f"{json.dumps({stem: round(BUILD_INFO[stem]['seconds'], 2) for stem in stems})} s "
+          f"(waited for in name order: a later stem's is at least an earlier one's)",
+          flush=True)
     for stem in stems:
         for line in BUILD_INFO[stem]["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -316,7 +331,7 @@ def phase_kernel(stats):
     n_cells, t_cols, n_groups = 60_000, 1000, 2000
     labels = rng.integers(1, n_groups, n_cells)
     labels[rng.integers(n_cells)] = 0  # a 1-cell group
-    _, layout = layout_for(labels)
+    info, layout = layout_for(labels)
     real = he.real_rows_per_group(layout)
     counts = poisson_counts(rng, n_cells, t_cols)
     adversarial = np.array(
@@ -346,20 +361,26 @@ def phase_kernel(stats):
                 )
             print(f"[2] V={v_buckets} log1p={is_log1p}: kernel == plain "
                   f"({int(want.sum())} counted of {x.size})", flush=True)
-            # The contraction kernels on this histogram: OVR with both row
-            # splits, OVO (the largest group as reference) with and without
-            # the nnz split; then the fused pass on the same tile, against
-            # its plain version and the contraction of this histogram.
+            # The contraction kernel on this histogram (S=1) and on the two
+            # histograms of its rows in two cell shards (S=2, the tables'
+            # counts from the shards' rows): OVR with both row splits, OVO
+            # (the largest group as reference) with and without the nnz
+            # split; then the fused pass on the same tile, against its plain
+            # version and the contraction of this histogram.
             del want
-            launches = {}
-            for name, kw in contract_variants(layout).items():
+            variants = contract_variants(layout)
+            shards, by_code = cell_shards(xd, info, arrs["table"], is_log1p,
+                                          {kw["ref_code"] for kw in variants.values()})
+            for name, kw in variants.items():
                 tag = f"[2] V={v_buckets} log1p={is_log1p} {name}"
-                launches[name], _ = contract_check(tag, got, arrs["ppg"], kw)
+                contract_check(tag, got, arrs["ppg"], kw)
+                contract_check(f"{tag} S=2", got, arrs["ppg"], kw, shards,
+                               by_code[kw["ref_code"]])
                 rows = he.counting_rows(real, arrs["perm"], kw["ref_code"])
                 fused_check(tag, xd, args, arrs["ppg"], rows, is_log1p, kw, hist=got)
-            print(f"[2] V={v_buckets} log1p={is_log1p}: contraction kernels == plain; "
-                  f"launches {launches}; fused pass == plain == K1 + contraction", flush=True)
-            del got
+            print(f"[2] V={v_buckets} log1p={is_log1p}: contract_kernel == plain at S=1 and "
+                  f"S=2 (one launch each); fused pass == plain == K1 + contraction", flush=True)
+            del got, shards, by_code
     # Narrow wire dtype: a uint8 tile is cast on the card.
     arrs = he.prepare_hist_inputs(layout, 128, False, "cuda")
     args = (arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"])
@@ -371,12 +392,13 @@ def phase_kernel(stats):
     fused_check("[2] uint8 tile ovo_nnz_split", x8, args, arrs["ppg"],
                 he.counting_rows(real, arrs["perm"], kw["ref_code"]), False, kw, hist=hist8)
     del hist8
-    # K1's own launches: the pass counter less the fused kernel's.
+    # K1's own launches (the pass counter less the fused kernel's): each
+    # histogram, two shards of it and the uint8 tile's.
     moved = he.hist_pass.launches - launches0
     fused = he.hist_pass_contract.launches - fused0
-    if moved - fused != 7 or fused != 6 * 3 + 1:
+    if moved - fused != 6 * 3 + 1 or fused != 6 * 3 + 1:
         raise AssertionError(f"launch counters moved by {moved} (pass) and {fused} (fused), "
-                             f"expected 7 + 19 and 19")
+                             f"expected 19 + 19 and 19")
     print(f"[2] uint8 tile: kernel == plain, fused pass == plain == K1 + contraction; K1 "
           f"launches +{moved - fused}, fused +{fused}", flush=True)
     stats["max_abs_err"] = worst
@@ -610,27 +632,29 @@ def zero_launches():
         getattr(he, name).launches = 0
 
 
-def read_launches(tag, passes, path="fused", contractions=0):
+def read_launches(tag, passes, path="fused", contractions=0, row_counts=0):
     """The launch counts since :func:`zero_launches`, held to ``passes``
     grouped-histogram passes on ``path``: "fused" (one device or a gene
     shard: each pass one ``row_counts_kernel`` and one
     ``grouped_hist_contract_kernel``, neither K1 nor the histogram's
-    contraction kernels) or "histogram" (the cell mesh and the
-    ``hist_fn`` hook: K1, and ``contractions`` launches of the contraction
-    kernels, OVO one and OVR two a contraction).  Returns the counts by
-    kernel."""
+    ``contract_kernel``) or "histogram" (the cell mesh and the ``hist_fn``
+    hook: K1, ``contractions`` launches of ``contract_kernel``, one a
+    contraction, and ``row_counts`` of ``row_counts_kernel``: the cell
+    mesh's OVR counts each shard's rows beside its K1).  Returns the
+    counts by kernel."""
     from illico_tpu_torch.ops import hist_engine as he
 
     got = {name: getattr(he, name).launches for name in LAUNCH_COUNTERS}
     fused = passes if path == "fused" else 0
-    want = {"hist_pass": passes, "hist_pass_contract": fused, "row_counts": fused,
+    want = {"hist_pass": passes, "hist_pass_contract": fused,
+            "row_counts": fused if path == "fused" else row_counts,
             "hist_contract": 0 if path == "fused" else contractions}
     if DEV == "cuda" and got != want:
         raise AssertionError(f"{tag}: launches {got}, expected {want}")
     return {"grouped_hist_contract_kernel": got["hist_pass_contract"],
             "row_counts_kernel": got["row_counts"],
             "grouped_hist_kernel": got["hist_pass"] - got["hist_pass_contract"],
-            "hist_contract_kernels": got["hist_contract"]}
+            "contract_kernel": got["hist_contract"]}
 
 
 def phase_full(stats, ctx):
@@ -658,7 +682,7 @@ def phase_full(stats, ctx):
                 np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
     # Per call: one fused pass by the warm-up and one per tile, each one
     # launch of the counting kernel and one of the fused kernel; neither K1
-    # nor the histogram's contraction kernels.
+    # nor the histogram's contract_kernel.
     launches = read_launches("[5] main path", 4 * 2)
     print(f"[5] launches on the main path (four calls, each the warm-up and one tile): "
           f"{launches}; every tile took the native tail; frames bit-equal at 1 and "
@@ -1215,7 +1239,7 @@ def phase_sharded(stats, ctx, worker_timeout=300):
         ("cell_mesh", "10c cell mesh devices=(2, 1)", (2, 1), 1, ("host", "CUDA tensor")),
     ):
         zero_launches()  # this path's launches only
-        expected = contractions = 0
+        expected = contractions = counted = 0
         for kind in kinds:
             # The matrix is on the card only while it is the input, so the
             # host-input peaks do not count it.
@@ -1226,16 +1250,20 @@ def phase_sharded(stats, ctx, worker_timeout=300):
                                     shard_tiles=shard_tiles, devices=devices, **api_kw)
                 np.testing.assert_array_equal(df.values, ctx["frames"][tag].values)
                 runs[f"{name} {tag} {kind}"] = rec
-                expected += warm_launches[devices] + 2 * n_tiles  # 2 shards per tile
-                # The cell mesh contracts the summed histogram once by the
-                # warm-up and once per tile: OVO one kernel, OVR two.
-                contractions += (1 + n_tiles) * (1 if reference else 2)
+                passes = warm_launches[devices] + 2 * n_tiles  # 2 shards per tile
+                expected += passes
+                # The cell mesh contracts its shards' histograms once by the
+                # warm-up and once per tile, one kernel each; in OVR each
+                # shard also counts its rows' values beside its K1.
+                contractions += 1 + n_tiles
+                counted += 0 if reference else passes
             del X
         # Each gene shard takes the fused pass; the cell mesh keeps K1 and
-        # the histogram's contraction kernels.
+        # the histogram's contract_kernel (and row_counts_kernel in OVR).
+        cell = key == "cell_mesh"
         by_kernel[key] = read_launches(
-            f"[{name}]", expected, path="fused" if key == "gene_mesh" else "histogram",
-            contractions=contractions)
+            f"[{name}]", expected, path="histogram" if cell else "fused",
+            contractions=contractions, row_counts=counted if cell else 0)
         launches[key] = he.hist_pass.launches
     print(f"[10b/10c] gene-mesh and cell-mesh frames equal phase 5's bit for bit, host and "
           f"CUDA-tensor input; every shard tile took the native tail; grouped passes: "
@@ -1243,14 +1271,37 @@ def phase_sharded(stats, ctx, worker_timeout=300):
           f"warm-up launch(es) and one per tile and shard), {launches['cell_mesh']} under the "
           f"cell mesh (4 calls, each 2 warm-up launches and one per tile and shard); by "
           f"kernel {json.dumps(by_kernel)}", flush=True)
-    # The cell mesh's histogram sum alone: one shard's (G, V, T) float32
-    # histogram added into the lead's (copied first when on another card).
-    a = torch.zeros((n_groups, 128, min(n_genes, 2048)), dtype=torch.float32, device=cards[0])
-    b = torch.ones_like(a, device=pool[1])
-    add_ms = cuda_ms(lambda: a.add_(b.to(cards[0], non_blocking=True)), reps=5)
-    print(f"[10c] histogram sum alone ({a.numel() * 4 / 1e9:.2f} GB from {pool[1]} into "
-          f"{cards[0]}): {add_ms:.3f} ms", flush=True)
-    del a, b
+    # The cell mesh's peaks against what the tile planner charges the lead
+    # for one tile (models/wilcoxon.py:_device_tile_cap): every shard's
+    # (G, V, T) float32 histogram that it holds until the contraction (two:
+    # its own and the other shard's, copied or a logical shard's), its rows
+    # of the tile and the contraction's workspace; a CUDA tensor's matrix
+    # besides, which sits on the card before the call.
+    width = min(n_genes, 2048)
+    lead_rows = n_cells if not distinct else plan.rows_per_shard
+    charge = (2 * n_groups * he.hist_pass.v_buckets * width * 4 + lead_rows * width * 4
+              + 4 * he.CONTRACT_CHUNK_BYTES) / 1e9
+    peaks = {}
+    for tag, rec in runs.items():
+        if tag.startswith("10c"):
+            allowed = charge + (x.nbytes / 1e9 if tag.endswith("CUDA tensor") else 0.0)
+            peaks[tag] = [rec["peak_device_gb"], allowed]
+            if DEV == "cuda" and rec["peak_device_gb"] > allowed:
+                raise AssertionError(f"[{tag}] peak {rec['peak_device_gb']:.3f} GB past the "
+                                     f"planner's charge {allowed:.3f} GB")
+    print(f"[10c] peak device GB against the planner's charge (V={he.hist_pass.v_buckets}, "
+          f"{width} columns): {json.dumps(peaks)}", flush=True)
+    # The lead's part of one two-shard tile at V=512 alone (the shards'
+    # histograms made first): OVR's row counts and the contraction.
+    lead = {}
+    if DEV == "cuda":
+        xd = torch.from_numpy(x).to(cards[0])
+        for name, reference in (("ovo_nnz_split", "non-targeting"), ("ovr", None)):
+            lead[name] = lead_alone(f"[10c] {name}", xd, labels, reference)
+        del xd
+        torch.cuda.empty_cache()
+    print(f"[10c] the lead's part of one two-shard tile at V=512 (300,000 x 2,048, "
+          f"{n_groups} groups; lead_alone): == plain; {json.dumps(lead)}", flush=True)
 
     # -- 10d: simulated hosts at full width, then two real processes --------
     from illico_tpu_torch.parallel.multihost import host_gene_window
@@ -1343,8 +1394,9 @@ def phase_sharded(stats, ctx, worker_timeout=300):
           f"process {launches['multihost_processes']} (4 calls, each one warm-up pass and "
           f"one tile); {wall:.2f} s from start to exit, per process {json.dumps(timing)}",
           flush=True)
-    stats["sharded"] = dict(runs=runs, launches=launches, by_kernel=by_kernel, add_ms=add_ms,
-                            shard_kernel_ms=shard_ms, two_process_wall_s=wall, timing=timing)
+    stats["sharded"] = dict(runs=runs, launches=launches, by_kernel=by_kernel, lead=lead,
+                            peaks=peaks, shard_kernel_ms=shard_ms, two_process_wall_s=wall,
+                            timing=timing)
     stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), worst)
 
 
@@ -1667,18 +1719,103 @@ def k1_alone(tag, tile, layout, v_buckets):
     return rec
 
 
-def contract_check(tag, hist, ppg, kw):
-    """``hist_contract`` (the kernels on a CUDA histogram) against
-    ``hist_contract_plain`` on the same histogram: every output equal, bit
-    for bit (every statistic here is an integer below 2^53, or OVR's
-    tie_col, the same torch expression in both).  Returns the kernels'
-    launches and the outputs' bytes."""
+def shard_blocks(x, info, n_shards=2):
+    """The cell mesh's shards of the tile ``x`` (on its device): its rows in
+    ``n_shards`` contiguous blocks (``build_cell_shard_plans``), each with
+    its local (perm, indptr, order) on the card and its plan's indptr (numpy)."""
+    import torch
+
+    from illico_tpu_torch.parallel.cells import build_cell_shard_plans
+
+    plan = build_cell_shard_plans(info, n_shards)
+    return [(x[lo:hi].contiguous(),
+             *(torch.from_numpy(a).to(x.device)
+               for a in (plan.perm[s], plan.indptr[s], plan.order[s])), plan.indptr[s])
+            for s, (lo, hi) in enumerate(plan.row_bounds)]
+
+
+def shard_counts(blocks, table, is_log1p, code):
+    """The tables' counts from the blocks' rows, the blocks' counts added
+    as float64: code -1 every row (OVR's value counts), else that group's
+    rows (OVO's reference counts)."""
+    from illico_tpu_torch.ops import hist_engine as he
+
+    total = None
+    for xs, perm, _, _, ptr in blocks:
+        rows = perm if code < 0 else perm[int(ptr[code]) : int(ptr[code + 1])]
+        part = he.row_counts(xs, rows, table, is_log1p=is_log1p)
+        total = part if total is None else total + part
+    return total
+
+
+def cell_shards(x, info, table, is_log1p, ref_codes, n_shards=2):
+    """Each of the cell mesh's blocks of ``x`` (:func:`shard_blocks`) through
+    K1 on its local inputs, and for each code of ``ref_codes`` the tables'
+    counts from the blocks' rows (:func:`shard_counts`).  Returns
+    (histograms, {code: counts})."""
+    from illico_tpu_torch.ops import hist_engine as he
+
+    blocks = shard_blocks(x, info, n_shards)
+    hists = [he.hist_pass(xs, perm, indptr, order, table, is_log1p=is_log1p)
+             for xs, perm, indptr, order, _ in blocks]
+    return hists, {code: shard_counts(blocks, table, is_log1p, code) for code in ref_codes}
+
+
+def lead_alone(tag, x, labels, reference, v_buckets=512):
+    """The cell mesh lead's part of one two-shard tile of ``x`` (CUDA) after
+    its K1s, for logical shards on one card (nothing to copy): in OVR each
+    block's value counts from its rows (``row_counts_kernel``), added as
+    float64, then ``hist_contract`` of both blocks' histograms (the runner's
+    statics), one ``contract_kernel`` launch.  Held bit for bit to
+    ``hist_contract_plain`` of the histograms, then timed by CUDA events
+    (mean of 5) with the lead's peak device memory above what it held
+    before the call.  Returns {"ms", "peak_above_gb", "hist_gb"}."""
+    import torch
+
+    from illico_tpu_torch.ops import hist_engine as he
+
+    info, layout = layout_for(labels, reference)
+    kw = {k: v for k, v in he.hist_contract_statics(layout, info.ref_code, v_buckets).items()
+          if k != "compute_fc"}
+    kw["n_pad"] = float(layout.n_pad)
+    arrs = he.prepare_hist_inputs(layout, v_buckets, False, x.device)
+    blocks = shard_blocks(x, info)
+    hists = [he.hist_pass(xs, perm, indptr, order, arrs["table"], is_log1p=False)
+             for xs, perm, indptr, order, _ in blocks]
+
+    def lead():
+        counts = None if reference else shard_counts(blocks, arrs["table"], False, -1)
+        return he.hist_contract(hists, arrs["ppg"], counts=counts, **kw)
+
+    got, want = lead(), he.hist_contract_plain(hists, arrs["ppg"], **kw)
+    sync()
+    for key, w in want.items():
+        if not torch.equal(got[key], w):
+            raise AssertionError(f"{tag}: the lead's {key} != hist_contract_plain's")
+    del got, want
+    rec = {"ms": cuda_ms(lead, reps=5), "hist_gb": hists[0].numel() * 4 / 1e9}
+    before = torch.cuda.memory_allocated(x.device)
+    torch.cuda.reset_peak_memory_stats(x.device)
+    lead()
+    sync()
+    rec["peak_above_gb"] = (torch.cuda.max_memory_allocated(x.device) - before) / 1e9
+    return rec
+
+
+def contract_check(tag, hist, ppg, kw, shards=None, counts=None):
+    """``hist_contract`` (``contract_kernel`` on CUDA histograms) of
+    ``shards`` (the cell mesh's histograms of the same tile; by default
+    ``hist`` alone) with the tables' ``counts`` (by default taken from the
+    histograms) against ``hist_contract_plain`` of ``hist``: every output
+    equal, bit for bit (every statistic here is an integer below 2^53, or
+    OVR's tie_col, the same torch expression in both).  Returns the
+    kernel's launches and the outputs' bytes."""
     import torch
 
     from illico_tpu_torch.ops import hist_engine as he
 
     before = he.hist_contract.launches
-    got = he.hist_contract(hist, ppg, **kw)
+    got = he.hist_contract([hist] if shards is None else shards, ppg, counts=counts, **kw)
     launches = he.hist_contract.launches - before
     want = he.hist_contract_plain(hist, ppg, **kw)
     sync()
@@ -1689,46 +1826,50 @@ def contract_check(tag, hist, ppg, kw):
             diff = float((got[key].double() - w.double()).abs().max())
             raise AssertionError(f"{tag}: contraction kernel != plain in {key}, "
                                  f"max |diff| {diff}")
+    if DEV == "cuda" and launches != 1:
+        raise AssertionError(f"{tag}: {launches} contraction launches, expected 1")
     nbytes = sum(t.numel() * t.element_size() for t in want.values())
     return launches, nbytes
 
 
-def contract_alone(tag, hist, ppg, kw):
-    """The contraction alone on one histogram: the kernels bit for bit
-    against the plain version, the kernels' launches and every device
-    kernel of one call (the torch steps around them included), then (on
-    CUDA) its time by CUDA events beside the plain version's and the
-    bound.  The bound counts the histogram read once and the outputs
-    written once at 3.35 TB/s, against the float64 operations this
-    histogram's nonzero counts need at 34 TFLOP/s (OVO 14 a count: fc 2,
-    k 1, U2 2, tie 9; OVR 6: R2 2, fc 2, k 1, c 1).  Returns the record."""
+def contract_alone(tag, hist, ppg, kw, shards=None, counts=None):
+    """The contraction alone on one histogram, or on the cell mesh's
+    ``shards`` of it, with the tables' ``counts`` given: the kernel bit for
+    bit against the plain version, its launches and every device kernel of
+    one call (the torch steps around it included), then (on CUDA) its time
+    by CUDA events beside the plain version's and the bound.  The bound
+    counts each histogram read once and the outputs written once at 3.35
+    TB/s, against the float64 operations the summed histogram's nonzero
+    counts need at 34 TFLOP/s (OVO 14 a count: fc 2, k 1, U2 2, tie 9; OVR
+    5: R2 2, fc 2, k 1).  Returns the record."""
     import torch
 
     from illico_tpu_torch.ops import hist_engine as he
 
-    launches, out_bytes = contract_check(tag, hist, ppg, kw)
-    hist_bytes = hist.numel() * hist.element_size()
-    ops = int(torch.count_nonzero(hist)) * (6 if kw["ref_code"] == -1 else 14)
+    hists = [hist] if shards is None else shards
+    launches, out_bytes = contract_check(tag, hist, ppg, kw, shards, counts)
+    hist_bytes = sum(h.numel() * h.element_size() for h in hists)
+    ops = int(torch.count_nonzero(hist)) * (5 if kw["ref_code"] == -1 else 14)
     bytes_ms = (hist_bytes + out_bytes) / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FP64_PER_S * 1e3
-    rec = {"max_abs_err": 0.0, "launches": launches, "bound_ms": max(bytes_ms, ops_ms),
+    rec = {"max_abs_err": 0.0, "launches": launches, "shards": len(hists),
+           "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "bytes_bound_ms": bytes_ms, "ops_bound_ms": ops_ms}
     if DEV == "cuda":
-        kernels = device_kernels(lambda: he.hist_contract(hist, ppg, **kw))
+        def call():
+            return he.hist_contract(hists, ppg, counts=counts, **kw)
+
+        kernels = device_kernels(call)
         rec["device_kernels"] = len(kernels)
-        own = {}
-        for name, ms in kernels:
-            for stem in ("contract_kernel", "value_counts_kernel"):
-                if stem in name:
-                    own[stem] = own.get(stem, 0.0) + ms
-        rec["kernel_ms"] = sum(own.values())
-        rec["kernels_ms"] = own
-        rec["ms"] = cuda_ms(lambda: he.hist_contract(hist, ppg, **kw), reps=10)
-        rec["plain_ms"] = cuda_ms(lambda: he.hist_contract_plain(hist, ppg, **kw), reps=2)
+        own = [ms for name, ms in kernels if "contract_kernel" in name]
+        rec["kernel_ms"] = sum(own) if own else None  # None: the trace lost it
+        rec["ms"] = cuda_ms(call, reps=10)
+        rec["plain_ms"] = cuda_ms(
+            lambda: he.hist_contract_plain(hists, ppg, counts=counts, **kw), reps=2)
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    print(f"{tag} contraction alone, histogram {tuple(hist.shape)} "
-          f"({hist_bytes / 1e9:.2f} GB): kernels == plain; {json.dumps(rec)}", flush=True)
+    print(f"{tag} contraction alone, {len(hists)} histogram(s) of {tuple(hist.shape)} "
+          f"({hist_bytes / 1e9:.2f} GB): kernel == plain; {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -1816,7 +1957,7 @@ def fused_alone(tag, tile, labels, ref, v_buckets, empty_group=False):
     ``torch.profiler``.  Bounds: the bytes each kernel must move at 3.35
     TB/s (its rows read once, its inputs and outputs once), against the
     float64 operations of this tile's nonzero (group, value, column) counts
-    at 34 TFLOP/s (OVO 14 a count, OVR 6, as 12e).  The fused kernel reads
+    at 34 TFLOP/s (OVO 14 a count, OVR 6).  The fused kernel reads
     the rows of every group but OVO's reference, whose counts it takes from
     the counting pass (``bound_ms``); ``bound_ms_all_rows`` counts every
     real row and no reference counts, as a pass that reads the reference's
@@ -1939,7 +2080,7 @@ def histogram_path():
             hist = he.hist_pass(x, *args, is_log1p=is_log1p)
             if mark is not None:
                 mark("kernel")
-            return hist
+            return hist, None
 
         return make(layout, device=device, is_log1p=is_log1p, v_buckets=v_buckets,
                     hist_fn=hist_fn, **kw)
@@ -2077,10 +2218,12 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
     k1 = {v: k1_alone("[12d]", tile, layout, v) for v in (256, 512)}
     print(f"[12d] {time.perf_counter() - t_sub:.1f} s", flush=True)
 
-    # -- 12e: the contraction kernels alone on that tile's V=512 histogram ----
+    # -- 12e: the contraction kernel alone on that tile's V=512 histogram ----
     # With the statics the runner derives: OVO with the nnz split (the
     # benchmark's path), OVO with it kept off, and OVR, whose R2 row split
-    # takes the control.
+    # takes the control; each from the one histogram (S=1) and from the two
+    # histograms of the tile's rows in two cell shards (S=2), the tables'
+    # counts given from the rows (OVR: every row's; OVO: the reference's).
     t_sub = time.perf_counter()
     contract = {}
     for name, ref, hint in (("ovo_nnz_split", "non-targeting", True),
@@ -2096,8 +2239,13 @@ def phase_heavy_tailed(stats, shape=PUBLISHED_SHAPE, n_pairs=50):
         arrs = he.prepare_hist_inputs(layout_e, MAX_V, False, tile.device)
         hist = he.hist_pass(tile, arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"],
                             is_log1p=False)
-        contract[name] = contract_alone(f"[12e] {name}", hist, arrs["ppg"], kw)
-        del hist
+        shards, counts = cell_shards(tile, info_e, arrs["table"], False, [info_e.ref_code])
+        counts = counts[info_e.ref_code]
+        contract[name] = contract_alone(f"[12e] {name} S=1", hist, arrs["ppg"], kw,
+                                        counts=counts)
+        contract[f"{name}_s2"] = contract_alone(f"[12e] {name} S=2", hist, arrs["ppg"], kw,
+                                                shards=shards, counts=counts)
+        del hist, shards, counts
     stats["contract_max_abs_err"] = 0.0
     print(f"[12e] {time.perf_counter() - t_sub:.1f} s", flush=True)
 
@@ -2316,8 +2464,8 @@ def kernels_record(stats) -> dict:
     fused = heavy.get("fused", {})
     # Each kernel's "launches" is its count on its own path, from 0 just
     # before it: phase 5's four calls (one device: the counting and fused
-    # kernels) and phase 10c's four (the cell mesh: K1 and the histogram's
-    # contraction kernels).  The "passes_*" keys count grouped-histogram
+    # kernels) and phase 10c's four (the cell mesh: K1 and contract_kernel;
+    # its OVR calls also count rows, in row_counts' launches_cell_mesh).  The "passes_*" keys count grouped-histogram
     # passes (``hist_pass.launches``: K1 or the fused kernel) per path.
     kernel = {
         "name": "grouped_hist",
@@ -2356,21 +2504,29 @@ def kernels_record(stats) -> dict:
         "library_ms": stats.get("library_ms"),
     }
     contract = heavy.get("contract", {})
-    main_contract = contract.get("ovo_nnz_split", {})  # the benchmark's variant
+    # The benchmark's variant at two cell shards: the cell mesh, the one
+    # path that contracts a histogram, has S >= 2.
+    main_contract = contract.get("ovo_nnz_split_s2", {})
     contract_kernel = {
         "name": "hist_contract",
         "route": "cuda",
         "source": "illico_tpu_torch/csrc/hist_contract.cu",
         "replaces": "illico_tpu/ops/hist_engine.py:706",
-        # Launches of contract_kernel and value_counts_kernel on the cell
-        # mesh (phase 10c), counted from 0.
-        "launches": cell_mesh.get("hist_contract_kernels"),
-        # Phase 12e, one full tile's V=512 histogram: per variant the call's
-        # time, the plain version's, the bound and its kind, the two
-        # kernels' own time and every device kernel of one call.
+        # Launches of contract_kernel on the cell mesh (phase 10c), counted
+        # from 0.
+        "launches": cell_mesh.get("contract_kernel"),
+        # Phase 12e, one full tile's V=512 histogram (S=1) and its two cell
+        # shards' (<variant>_s2), the tables' counts given: per variant the
+        # call's time, the plain version's, the bound and its kind, the
+        # kernel's own time and every device kernel of one call.
         **{f"{key}_{name}": rec.get(key) for name, rec in contract.items()
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_ms",
                        "device_kernels", "launches")},
+        # Phase 10c: the lead's part of one two-shard V=512 tile after its
+        # K1s (copies, OVR's row counts, the contraction), and its peak.
+        **{f"lead_{key}_{name}": rec.get(key)
+           for name, rec in stats.get("sharded", {}).get("lead", {}).items()
+           for key in ("ms", "peak_above_gb")},
         "max_abs_err": stats.get("contract_max_abs_err"),
         "ms": main_contract.get("ms"),
         "plain_ms": main_contract.get("plain_ms"),
@@ -2391,6 +2547,7 @@ def kernels_record(stats) -> dict:
             "source": "illico_tpu_torch/csrc/hist_fused.cu",
             "replaces": "illico_tpu/ops/hist_engine.py:80",
             "launches": main_path.get(f"{name}_kernel"),
+            "launches_cell_mesh": cell_mesh.get(f"{name}_kernel"),
             "launches_device_input": stats.get("device_input", {}).get("launches", {}).get(
                 f"{name}_kernel"),
             "launches_heavy_tailed": {key: rec.get(f"{name}_kernel")

@@ -86,7 +86,8 @@ _SPARSE_CONVERT_BYTES = 48
 _COLSTAT_ROWS = 1 << 16
 
 # Device stages timed per tile, in stream order (see _StageClock); a cell
-# mesh adds "reduce" (the sum of the shards' histograms) after "kernel".
+# mesh adds "reduce" (the other shards' kernels and copies to the lead) after
+# "kernel".
 DEVICE_STAGES = ("h2d", "kernel", "contract", "pack", "d2h")
 
 
@@ -534,7 +535,8 @@ class WilcoxonRunner:
         float32 histogram and its rows of the tile for every shard placed on
         it (logical shards of one card share that card's memory), and the
         lead of a cell-sharded gene column also holds the histograms that
-        arrive from the column's other devices until they are summed.  Each
+        arrive from the column's other devices until its contraction has
+        read them (it holds every shard's histogram at once).  Each
         gene shard a device leads takes the contraction's bounded float64
         workspace besides.
         """
@@ -790,8 +792,9 @@ class WilcoxonRunner:
     def precompile(self) -> float:
         """Pay the one-time costs before the tile loop: build and load the
         native tail (C++ compiler) and, on CUDA, the kernels the hist tile
-        function launches (nvcc: the fused pass on one device, K1 and the
-        contraction kernels under the cell mesh), by running the tile
+        function launches (nvcc: the fused pass on one device, K1, the
+        contraction kernel and in OVR the counting kernel under the cell
+        mesh), by running the tile
         function once per distinct device on a
         zero tile of a shard's shape, so the loop meets a loaded library,
         initialized device modules and a warm allocator.  (The sort engine's

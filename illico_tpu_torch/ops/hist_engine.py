@@ -19,13 +19,15 @@ On one device (or each shard of the gene mesh) a tile takes
 ``csrc/hist_fused.cu`` first count the values of the rows the (V, T) tables
 need (:func:`row_counts`: the reference's rows, or every row in OVR), then
 count each (group, 32-column) block in shared memory and contract it there
-over v, so the (G, V, T) histogram is never written.  The cell mesh sums
-its shards' histograms, so it keeps them: :func:`hist_pass` launches
-``csrc/hist_kernel.cu`` (K1) and :func:`hist_contract` the kernels of
-``csrc/hist_contract.cu``, which read the float32 histogram once per pass
-and write the exact float64 sums.  CPU tensors take each kernel's plain
-torch version (:func:`row_counts_plain`, :func:`hist_pass_plain`,
-:func:`hist_contract_plain`).  Values outside the table match nothing; the
+over v, so the (G, V, T) histogram is never written.  The cell mesh
+counts each cell shard's rows apart, so it keeps histograms: on each
+shard :func:`hist_pass` launches ``csrc/hist_kernel.cu`` (K1) (and, in
+OVR, :func:`row_counts` counts the shard's rows), and on the lead
+:func:`hist_contract` launches ``csrc/hist_contract.cu``'s
+``contract_kernel``, which reads every shard's float32 histogram once,
+sums them in registers and writes the exact float64 sums.  CPU tensors
+take each kernel's plain torch version (:func:`row_counts_plain`,
+:func:`hist_pass_plain`, :func:`hist_contract_plain`).  Values outside the table match nothing; the
 contraction flags their columns from the totals (``overflow_cols``) and the
 runner recomputes those with the sort engine.
 
@@ -664,35 +666,72 @@ def _group_chunks(hist):
     return [(g0, min(g0 + chunk, n_groups)) for g0 in range(0, n_groups, chunk)]
 
 
-def _value_counts_plain(hist):
-    """(V, T) global value counts ``c[v, j] = sum_g h[g, v, j]``, exact.
-    Summed chunk by chunk: a reduction with dtype=float64 over the whole
-    histogram would first materialize its float64 copy (G x V x T x 8 bytes)."""
-    c = torch.zeros(hist.shape[1:], dtype=torch.float64, device=hist.device)
-    for g0, g1 in _group_chunks(hist):
-        c += hist[g0:g1].to(torch.float64).sum(dim=0)
+def _shards(hists) -> list:
+    """The histograms whose sum :func:`hist_contract` contracts, as a list:
+    one (G, V, T) tensor, or several (the cell mesh's shards), which must
+    share one shape, dtype and device."""
+    hists = [hists] if isinstance(hists, torch.Tensor) else list(hists)
+    if not hists:
+        raise ValueError("hist_contract: no histogram")
+    first = hists[0]
+    for s, h in enumerate(hists[1:], 1):
+        if h.shape != first.shape or h.dtype != first.dtype or h.device != first.device:
+            raise ValueError(
+                f"hist_contract: shard {s} is {h.dtype} {tuple(h.shape)} on {h.device}, "
+                f"shard 0 {first.dtype} {tuple(first.shape)} on {first.device}"
+            )
+    return hists
+
+
+def _chunk_sum(hists, g0, g1):
+    """The shards' sum over groups [g0, g1) as float64 (exact: integer counts)."""
+    h = hists[0][g0:g1].to(torch.float64)
+    for other in hists[1:]:
+        h += other[g0:g1]
+    return h
+
+
+def _value_counts_plain(hists):
+    """(V, T) global value counts ``c[v, j] = sum_s sum_g h_s[g, v, j]``,
+    exact.  Summed chunk by chunk: a reduction with dtype=float64 over a
+    whole histogram would first materialize its float64 copy (G x V x T x 8
+    bytes)."""
+    hists = _shards(hists)
+    c = torch.zeros(hists[0].shape[1:], dtype=torch.float64, device=hists[0].device)
+    for h in hists:
+        for g0, g1 in _group_chunks(h):
+            c += h[g0:g1].to(torch.float64).sum(dim=0)
     return c
 
 
-def _group_sums_plain(hist, tab, a, *, nnz_split: bool, total: bool):
-    """Plain torch version of ``contract_kernel``: the (G, T) float64 sums
-    over v of ``h * v`` (fc), ``h * tab`` (U2 or R2), the OVO tie term when
-    ``a`` (the reference row) is given, ``h`` over v > 0 under ``nnz_split``
-    (k; the v=0 plane then also leaves the U2 and tie sums) and ``h`` over
-    every v when ``total``; None for the sums not asked for."""
+def _ref_counts(hists, ref_code: int):
+    """(V, T) float64 counts of the reference group: its row of the shards'
+    sum (exact)."""
+    return _chunk_sum([h[ref_code : ref_code + 1] for h in hists], 0, 1)[0]
+
+
+def _group_sums_plain(hists, tab, a, *, nnz_split: bool, total: bool):
+    """Plain torch version of ``contract_kernel``: over the sum of the
+    shards' histograms ``hists`` (one tensor or a list), the (G, T) float64
+    sums over v of ``h * v`` (fc), ``h * tab`` (U2 or R2), the OVO tie term
+    when ``a`` (the reference row) is given, ``h`` over v > 0 under
+    ``nnz_split`` (k; the v=0 plane then also leaves the U2 and tie sums)
+    and ``h`` over every v when ``total``; None for the sums not asked for.
+    The shards are summed chunk by chunk, never into a whole histogram."""
     f64 = torch.float64
-    n_groups, v_buckets, t_cols = hist.shape
-    vals = torch.arange(v_buckets, dtype=f64, device=hist.device)[:, None]
+    hists = _shards(hists)
+    n_groups, v_buckets, t_cols = hists[0].shape
+    vals = torch.arange(v_buckets, dtype=f64, device=hists[0].device)[:, None]
 
     def new():
-        return hist.new_empty((n_groups, t_cols), dtype=f64)
+        return hists[0].new_empty((n_groups, t_cols), dtype=f64)
 
     fc_sums, main = new(), new()
     tie = new() if a is not None else None
     k = new() if nnz_split else None
     tot = new() if total else None
-    for g0, g1 in _group_chunks(hist):
-        h = hist[g0:g1].to(f64)
+    for g0, g1 in _group_chunks(hists[0]):
+        h = _chunk_sum(hists, g0, g1)
         fc_sums[g0:g1] = (h * vals).sum(dim=1)
         if total:
             tot[g0:g1] = h.sum(dim=1)
@@ -710,39 +749,22 @@ def _contract_library():
 
     lib = load_library("hist_contract")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.illico_value_counts.restype = lib.illico_contract.restype = i32
-    lib.illico_value_counts.argtypes = [ptr, ptr, i64, i32, i32, ptr]
-    lib.illico_contract.argtypes = [ptr] * 8 + [i64, i32, i32, i32, ptr]
+    lib.illico_contract.restype = i32
+    lib.illico_contract.argtypes = [ptr, i32] + [ptr] * 7 + [i64, i32, i32, i32, i32, ptr]
     return lib
 
 
-def _launch_contract(fn, dev, *args):
-    """One launch of a ``csrc/hist_contract.cu`` entry point on the current
-    stream of ``dev``, counted in ``hist_contract.launches``."""
-    with torch.cuda.device(dev):
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"hist_contract kernel launch failed with cudaError_t {err}")
-    _CONTRACT_ENTRY.launches += 1
-
-
-def _value_counts_cuda(hist):
-    """:func:`_value_counts_plain` by ``value_counts_kernel``."""
-    dev = hist.device
-    _check("hist", hist, torch.float32, 3, dev, "hist_contract")
-    n_groups, v_buckets, t_cols = hist.shape
-    c = torch.zeros((v_buckets, t_cols), dtype=torch.float64, device=dev)
-    _launch_contract(_contract_library().illico_value_counts, dev, hist.data_ptr(),
-                     c.data_ptr(), t_cols, n_groups, v_buckets)
-    return c
-
-
-def _group_sums_cuda(hist, tab, a, *, nnz_split: bool, total: bool):
+def _group_sums_cuda(hists, tab, a, *, nnz_split: bool, total: bool):
     """:func:`_group_sums_plain` by ``contract_kernel``: one launch, one
-    read of the histogram."""
-    f64, dev = torch.float64, hist.device
-    _check("hist", hist, torch.float32, 3, dev, "hist_contract")
-    n_groups, v_buckets, t_cols = hist.shape
+    read of each shard's histogram, their sum never written.  The shards'
+    addresses reach the kernel as a device array (any number of shards);
+    rows on 16-byte boundaries take 16-byte loads."""
+    f64 = torch.float64
+    hists = _shards(hists)
+    dev = hists[0].device
+    for h in hists:
+        _check("hist", h, torch.float32, 3, dev, "hist_contract")
+    n_groups, v_buckets, t_cols = hists[0].shape
     for name, t in (("tab", tab), ("a", a)):
         if t is not None:
             _check(name, t, f64, 2, dev, "hist_contract")
@@ -757,11 +779,20 @@ def _group_sums_cuda(hist, tab, a, *, nnz_split: bool, total: bool):
     tie = new() if a is not None else None
     k = new() if nnz_split else None
     tot = new() if total else None
-    _launch_contract(
-        _contract_library().illico_contract, dev,
-        *(None if t is None else t.data_ptr() for t in (hist, tab, a, fc_sums, main, tie, k, tot)),
-        t_cols, n_groups, v_buckets, int(bool(nnz_split)),
-    )
+    addrs = [h.data_ptr() for h in hists]
+    # Copied from pageable memory in stream order, without waiting for the card.
+    table = torch.tensor(addrs, dtype=torch.int64).to(dev, non_blocking=True)
+    vec = t_cols % 4 == 0 and all(p % 16 == 0 for p in addrs)
+    with torch.cuda.device(dev):
+        err = _contract_library().illico_contract(
+            table.data_ptr(), len(hists),
+            *(None if t is None else t.data_ptr() for t in (tab, a, fc_sums, main, tie, k, tot)),
+            t_cols, n_groups, v_buckets, int(bool(nnz_split)), int(vec),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"hist_contract kernel launch failed with cudaError_t {err}")
+    _CONTRACT_ENTRY.launches += 1
     return fc_sums, main, tie, k, tot
 
 
@@ -848,33 +879,55 @@ def _contract_counts(
     return pack_device_outputs(out, narrow)[0]
 
 
-def _contract(hist, pads_per_group, value_counts, group_sums, *, ref_code: int, **statics):
-    """The contraction of a (G, V, T) histogram around its two sums:
-    ``value_counts(hist)`` (OVR; OVO takes the reference's row of ``hist``)
-    and ``group_sums(hist, tab, a, ...)``, plain or kernel alike."""
-    counts = value_counts(hist) if ref_code == -1 else hist[ref_code].to(torch.float64)
+def _contract(hists, pads_per_group, group_sums, *, counts=None, ref_code: int, **statics):
+    """The contraction of the sum of one or several (G, V, T) histograms
+    around its group sums ``group_sums(hists, tab, a, ...)``, plain or
+    kernel alike.  ``counts`` are the tables' (V, T) float64 counts (OVR:
+    the value counts; OVO: the reference group's); without them OVR sums the
+    histograms (:func:`_value_counts_plain`) and OVO takes the reference's
+    row of their sum."""
+    hists = _shards(hists)
+    v_buckets, t_cols = hists[0].shape[1:]
+    if counts is None:
+        counts = _value_counts_plain(hists) if ref_code == -1 else _ref_counts(hists, ref_code)
+    else:
+        _check("counts", counts, torch.float64, 2, hists[0].device, "hist_contract")
+        if tuple(counts.shape) != (v_buckets, t_cols):
+            raise ValueError(f"hist_contract: counts have shape {tuple(counts.shape)}, "
+                             f"expected {(v_buckets, t_cols)}")
     return _contract_counts(
-        counts, lambda tab, a, **kw: group_sums(hist, tab, a, **kw), pads_per_group,
+        counts, lambda tab, a, **kw: group_sums(hists, tab, a, **kw), pads_per_group,
         ref_code=ref_code, **statics,
     )
 
 
-def hist_contract_plain(hist, pads_per_group, **statics):
+def hist_contract_plain(hists, pads_per_group, *, counts=None, **statics):
     """Plain torch version of :func:`hist_contract` on any device: the sums
     as float64 torch ops over group chunks of at most
-    ``CONTRACT_CHUNK_BYTES`` per temporary, so device memory holds the
-    float32 histogram plus a bounded workspace."""
-    return _contract(hist, pads_per_group, _value_counts_plain, _group_sums_plain, **statics)
+    ``CONTRACT_CHUNK_BYTES`` per temporary (the shards summed chunk by
+    chunk), so device memory holds the float32 histograms plus a bounded
+    workspace."""
+    return _contract(hists, pads_per_group, _group_sums_plain, counts=counts, **statics)
 
 
-def hist_contract(hist, pads_per_group, **statics):
-    """All statistics as exact float64 histogram contractions.
+def hist_contract(hists, pads_per_group, *, counts=None, **statics):
+    """All statistics as exact float64 contractions of the sum of ``hists``:
+    one (G, V, T) float32 histogram, or a list of several of one shape,
+    dtype and device (the cell mesh's shards, whose sum is the tile's
+    histogram; it is never formed).
 
     Same output contract as :func:`illico_tpu_torch.ops.rank_engine.rank_stats_tile`
     plus ``overflow_cols`` (columns where a real row matched no table entry).
-    A CUDA histogram launches ``csrc/hist_contract.cu`` (each launch counted
-    in ``hist_contract.launches``: OVO one, OVR two); a CPU histogram takes
+    A CUDA histogram launches ``csrc/hist_contract.cu``'s ``contract_kernel``
+    once, which reads each shard once (counted in
+    ``hist_contract.launches``); a CPU histogram takes
     :func:`hist_contract_plain`.  Any other device raises.
+
+    ``counts``: the (V, T) float64 counts the tables need, on the
+    histograms' device: OVR's value counts ``c[v, j] = sum_g h[g, v, j]``
+    (the cell mesh takes them from the rows, :func:`row_counts`) or OVO's
+    reference counts.  Without them OVR sums the histograms in torch and OVO
+    takes the reference's row.
 
     Keywords (the statics of :func:`hist_contract_statics` with ``n_pad``):
     ``n_pad`` and ``ref_code`` (-1: OVR) are required.  In OVO the
@@ -896,11 +949,13 @@ def hist_contract(hist, pads_per_group, **statics):
     ``pack=True`` returns one uint8 tensor (:func:`pack_device_outputs`)
     whose bytes equal the reference package's for the same histogram.
     """
-    if hist.device.type == "cuda":
-        return _contract(hist, pads_per_group, _value_counts_cuda, _group_sums_cuda, **statics)
-    if hist.device.type == "cpu":
-        return hist_contract_plain(hist, pads_per_group, **statics)
-    raise ValueError(f"hist_contract: unsupported device {hist.device}")
+    hists = _shards(hists)
+    dev = hists[0].device
+    if dev.type == "cuda":
+        return _contract(hists, pads_per_group, _group_sums_cuda, counts=counts, **statics)
+    if dev.type == "cpu":
+        return hist_contract_plain(hists, pads_per_group, counts=counts, **statics)
+    raise ValueError(f"hist_contract: unsupported device {dev}")
 
 
 hist_contract.launches = 0
@@ -1055,11 +1110,13 @@ def make_hist_tile_fn(
     ``run._statics`` holds the wire statics of
     :func:`hist_contract_statics`.
 
-    ``hist_fn(x, mark)``, when given, returns the (G, V, T) histogram that
-    :func:`hist_contract` then contracts (the kernels of
-    ``csrc/hist_contract.cu`` on the card), and does its own ``"kernel"``
-    mark: the cell-sharded path passes the sum of its shards' histograms,
-    on ``device``, and ``x`` is then whatever that function takes.
+    ``hist_fn(x, mark)``, when given, returns ``(hists, counts)``: the
+    (G, V, T) histogram, or several whose sum is the tile's, and the tables'
+    counts or None (:func:`hist_contract`'s ``counts=``), all on
+    ``device``; :func:`hist_contract` then contracts them (``contract_kernel``
+    on the card), and ``hist_fn`` does its own ``"kernel"`` mark.  The
+    cell-sharded path passes its shards' histograms, unsummed, and in OVR
+    their rows' value counts; ``x`` is then whatever that function takes.
     """
     validate_hist_layout(layout)
     arrs = prepare_hist_inputs(layout, v_buckets, is_log1p, device)
@@ -1104,9 +1161,9 @@ def make_hist_tile_fn(
                                      is_log1p=is_log1p, mark=mark, work=work,
                                      **contract_kw)
         else:
-            hist = hist_fn(x, mark)
-            out = hist_contract(hist, ppg, **contract_kw)
-            del hist
+            hists, counts = hist_fn(x, mark)
+            out = hist_contract(hists, ppg, counts=counts, **contract_kw)
+            del hists, counts
         if mark is not None:
             mark("contract")
         t_cols = out["overflow_cols"].shape[0]

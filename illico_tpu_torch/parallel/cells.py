@@ -3,10 +3,13 @@
 Port of ``illico_tpu.parallel.cells``.  Per-group rank sums do not compose
 across cell shards, but the histogram engine's per-(group, value, column)
 counts are additive over cells: each cell shard sweeps its own rows with the
-unchanged histogram kernel, the per-shard histograms are added on the gene
-column's lead device, and every contraction downstream is the single-device
-one bit for bit (the counts are exact float32 integers below 2**24, and
-adding such integers is exact in any order).
+unchanged histogram kernel, the per-shard histograms go to the gene column's
+lead device, and its contraction reads them all and sums each count as it
+goes, which is the single-device contraction bit for bit (the counts are
+exact float32 integers below 2**24, and adding such integers is exact in
+any order).  The reference adds the shards' histograms first (a ``psum``);
+here no summed histogram is made.  In OVR each shard also counts its rows'
+values (the tables' counts), and the lead adds those (V, T) counts.
 
 Shard ``s`` owns the contiguous input rows ``[s * rows_per_shard,
 (s + 1) * rows_per_shard)``; the last shard is simply shorter.  Each shard
@@ -81,7 +84,8 @@ def make_mesh_2d(cell_devices: int, gene_devices: int, devices=None) -> DeviceMe
     :func:`illico_tpu_torch.parallel.mesh.make_gene_mesh`.
 
     The cell axis carries the one transfer between devices (each shard's
-    histogram to its gene column's lead); the gene axis moves nothing.
+    histogram, and in OVR its value counts, to its gene column's lead); the
+    gene axis moves nothing.
     """
     devices = visible_devices() if devices is None else list(devices)
     cell_devices, gene_devices = int(cell_devices), int(gene_devices)
@@ -147,47 +151,64 @@ def build_cell_shard_plans(info, n_shards: int) -> CellShardPlan:
     )
 
 
-def _summed_hist_fn(local_args, devices, streams, is_log1p: bool):
+def _shard_histograms_fn(local_args, devices, streams, is_log1p: bool, count_values: bool):
     """``fn(blocks, mark)``: the histogram of each row block on its own
-    device and stream, summed on the lead (``devices[0]``) in the lead's
-    stream.
+    device and stream and, when ``count_values`` (OVR), the value counts of
+    the block's rows (:func:`row_counts` of every local row, beside its
+    histogram), all brought to the lead (``devices[0]``).  Returns
+    ``(hists, counts)``: the shards' histograms, never added (the lead's
+    contraction reads each once), and the (V, T) float64 value counts of
+    every row, the shards' counts added on the lead (exact integer sums),
+    or None.
 
-    Ordering between streams.  A histogram on another card is copied to the
-    lead from the source shard's context: torch runs such a copy on the
-    source's stream (so it follows the kernel, and the source block is freed
-    in that stream's order) and fences it both ways against the
-    destination's current stream, here the lead's.  So the copy starts only
-    after what the lead's stream already holds (its own kernel, earlier
-    adds), and the lead's stream goes on only after the copy: the add needs
-    no event of its own.  A histogram of a logical shard on the lead's own
-    device is not copied: an event recorded behind its kernel is what the
-    lead's stream waits for, and the histogram is marked as in use by the
-    lead's stream until the add has run.
+    Ordering between streams.  A shard's results on another card are
+    copied to the lead from the source shard's context: torch runs such a
+    copy on the source's stream (so it follows the kernels, and the source
+    tensors are freed in that stream's order) and fences it both ways
+    against the destination's current stream, here the lead's.  So the
+    copy starts only after what the lead's stream already holds, and the
+    lead's stream goes on only after the copy: the contraction needs no
+    event of its own.  A logical shard on the lead's own device is not
+    copied: an event recorded behind its kernels is what the lead's stream
+    waits for, and its tensors are marked as in use by the lead's stream
+    until the contraction has run.
     """
-    from illico_tpu_torch.ops.hist_engine import hist_pass
+    from illico_tpu_torch.ops.hist_engine import hist_pass, row_counts
 
     lead, lead_stream = devices[0], streams[0]
 
+    def shard(x, args):
+        hist = hist_pass(x, *args, is_log1p=is_log1p)
+        # args: (perm, indptr, order, table); perm lists every local row.
+        counts = row_counts(x, args[0], args[3], is_log1p=is_log1p) if count_values else None
+        return hist, counts
+
     def fn(blocks, mark=None):
         with on_device(lead, lead_stream):
-            total = hist_pass(blocks[0], *local_args[0], is_log1p=is_log1p)
+            hist, counts = shard(blocks[0], local_args[0])
+            hists = [hist]
             if mark is not None:
-                mark("kernel")  # the lead's own pass; the others' end in "reduce"
+                mark("kernel")  # the lead's own shard; the others' end in "reduce"
             for x, args, dev, stream in zip(blocks[1:], local_args[1:], devices[1:],
                                             streams[1:]):
                 with on_device(dev, stream):
-                    h = hist_pass(x, *args, is_log1p=is_log1p)
+                    parts = shard(x, args)
                     if dev != lead:
-                        h = h.to(lead, non_blocking=True)
+                        parts = [None if t is None else t.to(lead, non_blocking=True)
+                                 for t in parts]
                     elif stream is not None:
                         ready = torch.cuda.Event()
                         ready.record(stream)
                         lead_stream.wait_event(ready)
-                        h.record_stream(lead_stream)
-                total += h
+                        for t in parts:
+                            if t is not None:
+                                t.record_stream(lead_stream)
+                hists.append(parts[0])
+                if count_values:
+                    counts += parts[1]
             if mark is not None:
                 mark("reduce")
-        return total
+        return hists, counts
 
     return fn
 
@@ -208,11 +229,12 @@ def make_cell_sharded_hist_fn(
 
     ``run.shards[j]`` takes the row blocks ``plan.row_bounds`` of gene shard
     ``j``'s columns, one per cell shard and each on that shard's device:
-    local kernel launch per block -> sum on the column's lead device -> the
-    standard contraction and pack there.  ``layout`` is the *global* padded
-    layout: the exactness guards, the wire statics, ``ppg`` and ``n_pad``
-    are shard-independent, and the summed histogram is the single-device
-    one.
+    local kernel launch per block (in OVR also its rows' value counts) ->
+    the histograms and counts on the column's lead device -> the standard
+    contraction of their sum and the pack there.  ``layout`` is the *global*
+    padded layout: the exactness guards, the wire statics, ``ppg`` and
+    ``n_pad`` are shard-independent, and the shards' histograms sum to the
+    single-device one.
     """
     from illico_tpu_torch.ops.hist_engine import (
         DEFAULT_V,
@@ -248,9 +270,9 @@ def make_cell_sharded_hist_fn(
     for j in range(int(mesh.shape["genes"])):
         devices = mesh.column(j)
         streams = tuple(_new_stream(d) for d in devices)
-        hist_fn = _summed_hist_fn(
+        hist_fn = _shard_histograms_fn(
             [local_inputs(d, s) for s, d in enumerate(devices)],
-            devices, streams, bool(is_log1p),
+            devices, streams, bool(is_log1p), count_values=ref_code == -1,
         )
         fn = make_hist_tile_fn(
             layout, ref_code=ref_code, is_log1p=is_log1p, device=devices[0],

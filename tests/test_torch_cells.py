@@ -4,7 +4,9 @@ the CPU.
 
 The histogram engine's counts add up over cells: each cell shard's histogram
 is made from shard-local kernel inputs (a group may have no row in a shard),
-and the sum over shards is the single-device histogram bit for bit, so every
+and the sum over shards is the single-device histogram bit for bit (the
+lead's contraction reads the shards' histograms and never adds them up
+front; in OVR the shards' rows' value counts are the histogram's), so every
 frame of a 2-D mesh equals the single-device frame exactly.  A mesh here is
 several entries of the one CPU device (logical shards).
 """
@@ -26,6 +28,7 @@ from illico_tpu_torch.ops import hist_engine as he
 from illico_tpu_torch.ops.rank_engine import build_padded_layout
 from illico_tpu_torch.parallel import mesh as pmesh
 from illico_tpu_torch.parallel.cells import (
+    _shard_histograms_fn,
     build_cell_shard_plans,
     make_cell_sharded_hist_fn,
     make_mesh_2d,
@@ -109,7 +112,7 @@ def test_plan_shard_with_absent_group():
     assert [hi - lo for lo, hi in tiny.row_bounds] == [1, 1, 1, 1, 1, 0, 0, 0]
 
 
-# -- the summed histogram ---------------------------------------------------------------
+# -- the shards' histograms ------------------------------------------------------------
 
 
 def _jax_hist(x, labels, v_buckets, is_log1p):
@@ -129,9 +132,12 @@ def _jax_hist(x, labels, v_buckets, is_log1p):
 @pytest.mark.parametrize("n_shards", [2, 3, 8])
 @pytest.mark.parametrize("is_log1p", [False, True], ids=["raw", "log1p"])
 def test_summed_shard_histograms_equal_the_single_device_histogram(problem, n_shards, is_log1p):
-    """Per-shard ``hist_pass`` on shard-local inputs, summed, equals the
-    unsharded pass and the Pallas kernel in interpret mode, bit for bit;
-    sorted labels give shards whole groups are absent from."""
+    """The cell mesh's shard function (``_shard_histograms_fn``: per-shard
+    ``hist_pass`` and, in OVR, ``row_counts`` on shard-local inputs, on the
+    lead without adding): its histograms sum to the unsharded pass and the
+    Pallas kernel in interpret mode, and its rows' value counts equal the
+    single-device histogram's value counts, bit for bit; sorted labels give
+    shards whole groups are absent from."""
     x, labels = problem
     x = x[:, :64]
     labels = np.sort(labels)
@@ -145,18 +151,28 @@ def test_summed_shard_histograms_equal_the_single_device_histogram(problem, n_sh
                          arrs["table"], is_log1p=is_log1p)
     plan = build_cell_shard_plans(info, n_shards)
     assert any((np.diff(p) == 0).any() for p in plan.indptr)
-    total = torch.zeros_like(whole)
-    for s, (lo, hi) in enumerate(plan.row_bounds):
-        part = he.hist_pass(
-            torch.from_numpy(x[lo:hi]), torch.from_numpy(plan.perm[s]),
-            torch.from_numpy(plan.indptr[s]), torch.from_numpy(plan.order[s]),
-            arrs["table"], is_log1p=is_log1p,
-        )
-        absent = np.flatnonzero(np.diff(plan.indptr[s]) == 0)
-        assert not part[absent].any()
-        total += part
-    assert torch.equal(total, whole)
-    np.testing.assert_array_equal(total.numpy(), _jax_hist(x, labels, 128, is_log1p))
+    local = [tuple(torch.from_numpy(a) for a in (plan.perm[s], plan.indptr[s], plan.order[s]))
+             + (arrs["table"],) for s in range(n_shards)]
+    blocks = [torch.from_numpy(x[lo:hi]) for lo, hi in plan.row_bounds]
+    for count_values in (True, False):
+        fn = _shard_histograms_fn(local, [CPU] * n_shards, [None] * n_shards, is_log1p,
+                                  count_values=count_values)
+        marks = []
+        hists, counts = fn(blocks, marks.append)
+        assert marks == ["kernel", "reduce"] and len(hists) == n_shards
+        for s, part in enumerate(hists):
+            absent = np.flatnonzero(np.diff(plan.indptr[s]) == 0)
+            assert not part[absent].any()
+        assert torch.equal(sum(hists[1:], hists[0]), whole)
+        if count_values:
+            assert counts.dtype == torch.float64
+            assert torch.equal(counts, he._value_counts_plain(whole))
+        else:
+            assert counts is None
+    jhist = _jax_hist(x, labels, 128, is_log1p)
+    np.testing.assert_array_equal(whole.numpy(), jhist)
+    np.testing.assert_array_equal(jhist.sum(axis=0, dtype=np.float64),
+                                  he._value_counts_plain(whole).numpy())
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2), (8, 1), (2, 1)])
@@ -208,7 +224,7 @@ def test_cell_mesh_validation(problem):
 # -- the public API -------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("devices", [(2, 4), (4, 2), (8, 1), (1, 8), (1, 1)])
+@pytest.mark.parametrize("devices", [(2, 4), (4, 2), (8, 1), (1, 8), (1, 1), (3, 2)])
 @pytest.mark.parametrize("reference", ["p0", None], ids=["ovo", "ovr"])
 def test_public_api_cells_matches_single_and_reference(problem, devices, reference):
     x, labels = problem

@@ -158,7 +158,7 @@ def test_tile_fn_takes_the_fused_pass_unless_given_a_histogram(ovo, monkeypatch)
         hist = the.hist_pass(xt, arrs["perm"], arrs["indptr"], arrs["order"], arrs["table"],
                              is_log1p=False)
         mark("kernel")
-        return hist
+        return hist, None
 
     fused_calls = _spy(monkeypatch, "hist_pass_contract")
     contract_calls = _spy(monkeypatch, "hist_contract")
